@@ -1,0 +1,311 @@
+"""MVSDet predict path (port of mvsdet_tpu/models/mvsdet.py).
+
+  images (N, H, W, 3)
+    -> ResNet-50 + FPN level 0                  (N, h, w, C) channels-last
+    -> kNN neighbour views
+    -> view chunks: plane-sweep variance -> CostRegNet
+       -> softmax depth prob + sigmoid offsets
+    -> top-k depth hypotheses + expectation
+    -> depth-weighted voxel lift (CUDA gather kernel on the card)
+    -> IndoorImVoxelNeck -> DetectionHead -> NMS
+  and the Gaussian branch: top-3 source views per render target ->
+  per-pixel Gaussians -> tile splatting (CUDA compositor on the card).
+
+Eval mode only in this slice; `loss`, train-mode BatchNorm, view
+sharding, the rotated ARKit head and per-view intrinsics come later.
+The plane sweep is the bilinear gather (`sweep_method="gather"` of the
+JAX module).  Public tensors keep the JAX package's channels-last layout.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from mvsdet_torch.config import Config, ModelConfig
+from mvsdet_torch.geometry.cameras import (full_projection,
+                                           knn_camera_neighbors,
+                                           nearest_pose_ids, scale_intrinsics)
+from mvsdet_torch.geometry.rays import depth_scale_map, sample_image_grid
+from mvsdet_torch.geometry.voxels import (depth_plane_values,
+                                          multiscale_voxel_points,
+                                          voxel_points)
+from mvsdet_torch.models.cost_reg import CostRegNet
+from mvsdet_torch.models.fpn import FPN
+from mvsdet_torch.models.gaussian_head import (Gaussians, ToGaussians,
+                                               adapt_gaussians)
+from mvsdet_torch.models.head import DetectionHead, head_predict
+from mvsdet_torch.models.neck3d import IndoorImVoxelNeck
+from mvsdet_torch.models.resnet import ResNet50
+from mvsdet_torch.ops.plane_sweep import plane_sweep_variance_for_refs
+from mvsdet_torch.ops.sampling import bilinear_resize, linear_resize
+from mvsdet_torch.ops.splat_tiles import render_views_tiled
+from mvsdet_torch.ops.voxel_lift import finalize_volume, lift_features_to_voxels
+
+
+def _upsample_valid(valid_count: torch.Tensor, shape3) -> torch.Tensor:
+    """Lift validity per head level: the view-count volume resized as
+    JAX's antialiased trilinear resize does (ROADMAP trap T2), >= 0.5."""
+    return linear_resize(valid_count, shape3, (0, 1, 2)) >= 0.5
+
+
+class MVSDet(nn.Module):
+    """Single-scene MVSDet forward and predict (eval mode)."""
+
+    def __init__(self, cfg: ModelConfig, sweep_chunk: int = 8):
+        super().__init__()
+        if cfg.gs.splat_impl != "tiled":
+            raise NotImplementedError("only the tiled splatting path is "
+                                      "ported")
+        self.cfg = cfg
+        self.sweep_chunk = sweep_chunk
+        c = cfg.backbone.fpn_out_channels
+        self.backbone = ResNet50(depth=cfg.backbone.depth)
+        self.fpn = FPN(out_channels=c)
+        self.cost_reg = CostRegNet(in_channels=c, norm=cfg.cost_reg_norm)
+        self.neck3d = IndoorImVoxelNeck(in_channels=c,
+                                        out_channels=cfg.neck3d_out_channels)
+        self.head = DetectionHead(cfg.head, in_channels=cfg.neck3d_out_channels)
+        gs_in = c + 1 + (3 if cfg.gs.use_rgb_gaussian else 0)
+        self.to_gaussians = ToGaussians(
+            gs_in, cfg.gs.num_surfaces * (2 + cfg.gs.adapter.d_in))
+
+    # -- feature extraction ------------------------------------------------
+
+    def image_features(self, images: torch.Tensor) -> torch.Tensor:
+        """(N, H, W, 3) images -> (N, h, w, C) FPN level 0, channels-last."""
+        feats = self.backbone(images.permute(0, 3, 1, 2).contiguous())
+        return self.fpn(feats)[0].permute(0, 2, 3, 1).contiguous()
+
+    def depth_probabilities(self, features: torch.Tensor, proj44: torch.Tensor,
+                            neighbor_ids: torch.Tensor):
+        """View-chunked plane sweep + cost regularisation.
+
+        Returns (prob, off), both (N, D, h, w): prob softmaxed over D,
+        off sigmoided (mvsdet.py:470-475).
+        """
+        mc = self.cfg
+        n = features.shape[0]
+        depths = depth_plane_values(*mc.near_far_range,
+                                    mc.gs.num_depth_planes,
+                                    device=features.device)
+        chunk = self.sweep_chunk
+        if n % chunk != 0:
+            chunk = 1 if n < chunk else max(
+                c for c in range(1, chunk + 1) if n % c == 0)
+        probs, offs = [], []
+        for ref_ids in torch.arange(n, device=features.device).reshape(-1, chunk):
+            var = plane_sweep_variance_for_refs(
+                features, proj44, ref_ids, neighbor_ids[ref_ids], depths)
+            out = self.cost_reg(var.permute(0, 4, 1, 2, 3).contiguous())
+            probs.append(torch.softmax(out[:, 0], dim=1))
+            offs.append(torch.sigmoid(out[:, 1]))
+        return torch.cat(probs), torch.cat(offs)
+
+    def sample_depth(self, prob: torch.Tensor, off: torch.Tensor):
+        """Top-k depth hypotheses and the expectation over all planes.
+
+        Returns est_depth (N, h, w, K), est_prob (N, h, w, K) and
+        depth_expect (N, h, w).
+        """
+        mc = self.cfg
+        near = mc.near_far_range[0]
+        interval = mc.depth_interval
+        p = prob.permute(0, 2, 3, 1)                          # (N, h, w, D)
+        o = off.permute(0, 2, 3, 1)
+        top_p, top_idx = torch.topk(p, mc.topk, dim=-1)
+        top_off = torch.gather(o, -1, top_idx)
+        est_depth = top_idx * interval + near + top_off * interval
+        plane = torch.arange(p.shape[-1], device=p.device) * interval + near
+        depth_expect = ((plane + o * interval) * p).sum(dim=-1)
+        return est_depth, top_p, depth_expect
+
+    # -- gaussian branch ---------------------------------------------------
+
+    def gaussian_branch(self, features, denorm_images, prob, depth_expect,
+                        src_c2w, feat_intrinsic, tgt_c2w) -> Gaussians:
+        """Per-pixel Gaussians from the nearest source views of every
+        render target (mvsdet.py:519-677).  The reference's variable-size
+        unique() is a fixed (T*k,) slot list whose duplicate slots get
+        opacity 0.  Returns a flat Gaussian set (S*h*w,)."""
+        mc = self.cfg
+        n, h, w, c = features.shape
+        dev = features.device
+        k_sel = min(mc.gs.render_src_per_target, n - 1)
+        sel = torch.sort(nearest_pose_ids(tgt_c2w, src_c2w, k_sel)
+                         .reshape(-1)).values                 # (S,)
+        first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                           sel[1:] != sel[:-1]])
+        s = sel.shape[0]
+
+        feat_sel = features[sel].reshape(s, h * w, c)
+        depth_code = depth_expect[sel].reshape(s, h * w, 1)
+        gs_feat = [feat_sel, depth_code]
+        if mc.gs.use_rgb_gaussian:
+            rgb = bilinear_resize(denorm_images[sel], (h, w))  # (S, h, w, 3)
+            gs_feat.append(rgb.reshape(s, h * w, 3))
+        raw = self.to_gaussians(torch.cat(gs_feat, dim=-1))   # (S, hw, 2+d_in)
+        offset_xy = torch.sigmoid(raw[..., :2])
+
+        xy, _ = sample_image_grid((h, w), device=dev)
+        pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=torch.float32,
+                                  device=dev)
+        coords = xy.reshape(1, h * w, 2) + (offset_xy - 0.5) * pixel_size
+
+        # opacity = max depth probability (mvsdet.py:581-582), duplicates 0
+        opacity = prob.amax(dim=1)[sel].reshape(s, h * w)
+        opacity = opacity * first[:, None].to(opacity.dtype)
+
+        norm = torch.tensor([[w], [h], [1.0]], dtype=torch.float32, device=dev)
+        k_norm = (feat_intrinsic[:3, :3] / norm).expand(s, 3, 3)
+        scale = depth_scale_map(h, w, feat_intrinsic[:3, :3])  # (hw, 1)
+        ray_depth = depth_code[..., 0] / (scale[None, :, 0] + 1e-8)
+
+        g = adapt_gaussians(src_c2w[sel], k_norm, coords, ray_depth, opacity,
+                            raw[..., 2:], (h, w), mc.gs.adapter)
+        flat = lambda t: t.reshape((s * h * w,) + t.shape[2:])
+        return Gaussians(means=flat(g.means), covariances=flat(g.covariances),
+                         harmonics=flat(g.harmonics),
+                         opacities=flat(g.opacities))
+
+    # -- full forward ------------------------------------------------------
+
+    def extract_feat(self, batch: Dict[str, torch.Tensor]):
+        """Backbone -> sweep -> depth -> lift -> neck, and the Gaussian
+        branch when the batch holds render targets.
+
+        `batch` (one scene): images (N, H, W, 3) normalised;
+        denorm_images (N, H, W, 3); w2c (N, 4, 4); intrinsic (4, 4) K at
+        image resolution; origin (3,); tgt_c2w (T, 4, 4); tgt_intrinsic
+        (4, 4) K at target resolution.
+        """
+        if batch["intrinsic"].ndim != 2:
+            raise NotImplementedError("per-view intrinsics (ARKit) are not "
+                                      "ported yet")
+        mc = self.cfg
+        feats = self.image_features(batch["images"].to(torch.float32))
+        n = feats.shape[0]
+
+        feat_intrinsic = scale_intrinsics(batch["intrinsic"],
+                                          float(mc.feature_stride))
+        proj44 = full_projection(batch["w2c"], feat_intrinsic)
+        src_c2w = torch.linalg.inv_ex(batch["w2c"]).inverse
+        neighbor_ids = knn_camera_neighbors(
+            src_c2w[:, :3, 3], min(mc.plane_sweep_neighbors, n - 1))
+
+        prob, off = self.depth_probabilities(feats, proj44, neighbor_ids)
+        est_depth, est_prob, depth_expect = self.sample_depth(prob, off)
+
+        points = voxel_points(mc.n_voxels, mc.voxel_size,
+                              batch["origin"]).reshape(3, -1).T  # (V, 3)
+        vol_sum, valid_cnt = lift_features_to_voxels(
+            feats, proj44[:, :3, :4], est_depth, est_prob, points,
+            mc.voxel_size[2])
+        volume = finalize_volume(vol_sum, valid_cnt)          # (V, C)
+        nx, ny, nz = mc.n_voxels
+        volume = volume.reshape(nx, ny, nz, -1).permute(3, 0, 1, 2)[None]
+        levels = self.neck3d(volume.contiguous())
+
+        gaussians = None
+        if "tgt_c2w" in batch:
+            gaussians = self.gaussian_branch(
+                feats, batch["denorm_images"], prob, depth_expect, src_c2w,
+                feat_intrinsic, batch["tgt_c2w"])
+        return dict(levels=levels, valid_count=valid_cnt.reshape(nx, ny, nz),
+                    est_depth=est_depth, est_prob=est_prob,
+                    depth_expect=depth_expect, gaussians=gaussians, prob=prob,
+                    proj44=proj44)
+
+    def render_targets(self, gaussians: Gaussians, batch, image_shape):
+        """Splat the scene Gaussians into every render target view."""
+        ht, wt = image_shape
+        n_tgt = batch["tgt_c2w"].shape[0]
+        tgt_k = batch["tgt_intrinsic"]
+        if tgt_k.ndim != 2:
+            raise NotImplementedError("per-target intrinsics (ARKit) are not "
+                                      "ported yet")
+        norm = torch.tensor([[wt], [ht], [1.0]], dtype=torch.float32,
+                            device=tgt_k.device)
+        ks = (tgt_k[:3, :3] / norm).expand(n_tgt, 3, 3)
+        bg = torch.tensor(self.cfg.gs.background_color, dtype=torch.float32,
+                          device=tgt_k.device)
+        return render_views_tiled(
+            gaussians.means, gaussians.covariances, gaussians.harmonics,
+            gaussians.opacities, batch["tgt_c2w"], ks, image_shape,
+            background=bg, capacity=self.cfg.gs.splat_capacity)
+
+    def _head_points_and_valid(self, valid_count, origin):
+        mc = self.cfg
+        nx, ny, nz = mc.n_voxels
+        sizes = [(nx >> i, ny >> i, nz >> i) for i in range(mc.head.n_levels)]
+        pts = multiscale_voxel_points(sizes, mc.voxel_size, origin)
+        valids = [_upsample_valid(valid_count, s).reshape(-1) for s in sizes]
+        return pts, valids
+
+    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict:
+        """Raw eval-mode outputs (`MVSDet.__call__(train=False)`)."""
+        out = self.extract_feat(batch)
+        head_outs = self.head(out["levels"])
+        pts, valids = self._head_points_and_valid(out["valid_count"],
+                                                  batch["origin"])
+        result = dict(head_outs=head_outs, points=pts, valids=valids, **out)
+        if out["gaussians"] is not None and "gt_images" in batch:
+            result["rendered"] = self.render_targets(
+                out["gaussians"], batch, tuple(batch["gt_images"].shape[1:3]))
+        return result
+
+    @torch.no_grad()
+    def predict(self, batch: Dict[str, torch.Tensor]) -> Dict:
+        """NMS'd boxes, rendered target views and the depth expectation
+        (`MVSDet.predict(diagnostics=False)`, mvsdet.py:500-547)."""
+        result = self(batch)
+        pred = head_predict(result["head_outs"], result["points"],
+                            result["valids"], self.cfg.head)
+        if "rendered" in result:
+            pred["rendered"] = result["rendered"]
+        pred["depth_expect"] = result["depth_expect"]
+        return pred
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Random weights drawn as flax initialises the JAX module: conv and
+    dense kernels lecun-normal truncated at two standard deviations, zero
+    biases, the head's class prior bias -4.595, unit norms and scales.
+    Every draw comes from ``generator``."""
+    for mod in model.modules():
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d,
+                            nn.Linear)):
+            w = mod.weight
+            in_ch = w.shape[0] if isinstance(mod, nn.ConvTranspose3d) \
+                else w.shape[1]
+            # 0.8796: the std of a unit normal truncated to [-2, 2]
+            std = (in_ch * w[0, 0].numel()) ** -0.5 / 0.87962566103423978
+            with torch.no_grad():
+                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                      generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+    if isinstance(model, MVSDet):
+        with torch.no_grad():
+            model.head.conv_cls.bias.fill_(-4.595)   # prior probability 0.01
+
+
+def build_model(cfg: Config, device="cuda",
+                generator: Optional[torch.Generator] = None) -> MVSDet:
+    """An eval-mode `MVSDet` for ``cfg`` with random weights from
+    ``generator`` (default: seeded with ``cfg.seed``), on ``device``.
+
+    Runs on the card unless the caller asks for the CPU; raises when CUDA
+    is missing and ``device="cpu"`` was not asked for.
+    """
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the port runs on the "
+                           "card; pass device='cpu' to run it on the CPU")
+    model = MVSDet(cfg.model)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    init_weights(model, generator)
+    return model.to(device).eval()
