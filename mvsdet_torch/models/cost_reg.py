@@ -3,6 +3,7 @@
 `CostRegNet_3DGS` (mvs_models/mvsnet.py:73-113): 2-down/2-up 3D U-Net
 over the (D, H, W) variance volume, emitting 2 channels (depth cost and
 per-plane offset).  Input (N, C, D, H, W), output (N, 2, D, H, W).
+In the default "group" norm, train and eval compute the same function.
 """
 
 from __future__ import annotations
@@ -27,10 +28,10 @@ class CostRegNet(nn.Module):
         self.conv11 = DeconvBnReLU(b * 2, b, norm=norm)
         self.prob = nn.Conv3d(b, 2, 3, padding=1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        conv0 = self.conv0(x)
-        conv2 = self.conv2(self.conv1(conv0))
-        bottom = self.conv4(self.conv3(conv2))
-        x = conv2 + self.conv9(bottom)
-        x = conv0 + self.conv11(x)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        conv0 = self.conv0(x, train)
+        conv2 = self.conv2(self.conv1(conv0, train), train)
+        bottom = self.conv4(self.conv3(conv2, train), train)
+        x = conv2 + self.conv9(bottom, train)
+        x = conv0 + self.conv11(x, train)
         return self.prob(x)

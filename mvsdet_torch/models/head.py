@@ -1,8 +1,9 @@
-"""Anchor-free 3D detection head: convs, decode and prediction.
+"""Anchor-free 3D detection head: convs, targets, losses and prediction.
 
-Port of the predict path of mvsdet_tpu/models/head.py (reference:
-`NerfDetHead`, nerfdet_head.py:90-118, 333-427).  Target assignment and
-the losses come with the training slice; the rotated ARKit head later.
+Port of mvsdet_tpu/models/head.py (reference: `NerfDetHead`,
+nerfdet_head.py:90-118, 206-257, 333-562) for axis-aligned boxes; the
+rotated ARKit head comes later.  Fixed shapes throughout: GT boxes are
+padded to `max_boxes` with a mask.
 """
 
 from __future__ import annotations
@@ -48,6 +49,159 @@ class DetectionHead(nn.Module):
             cls = _flat(self.conv_cls(x))
             outs.append((center, reg, cls))
         return outs
+
+
+FLOAT_MAX = 1e8
+
+
+def face_distances(points: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """(P, 3) points, (B, 6) centre-size boxes -> (P, B, 6) distances to
+    the faces (x_min, x_max, y_min, y_max, z_min, z_max) (:433-452)."""
+    p = points[:, None, :]
+    c = boxes[None, :, :3]
+    h = boxes[None, :, 3:6] / 2.0
+    lo = p - (c - h)
+    hi = (c + h) - p
+    return torch.stack([lo[..., 0], hi[..., 0], lo[..., 1], hi[..., 1],
+                        lo[..., 2], hi[..., 2]], dim=-1)
+
+
+def centerness_from_faces(fd: torch.Tensor) -> torch.Tensor:
+    """FCOS centerness from face distances (:454-471)."""
+    ratio = 1.0
+    for a in (0, 2, 4):
+        lo = torch.minimum(fd[..., a], fd[..., a + 1])
+        hi = torch.maximum(fd[..., a], fd[..., a + 1])
+        ratio = ratio * lo / torch.clamp_min(hi, 1e-12)
+    return torch.sqrt(torch.clamp_min(ratio, 0.0))
+
+
+def assign_targets(points: torch.Tensor, scales: torch.Tensor,
+                   gt_boxes: torch.Tensor, gt_labels: torch.Tensor,
+                   gt_mask: torch.Tensor, cfg: HeadConfig):
+    """FCOS-3D targets with fixed shapes (`_get_targets`, :473-562): inside
+    the box; at the box's best level (the last level before the one where
+    it holds fewer than `pts_assign_threshold` points); among the top
+    `pts_center_threshold` by centerness; ties to the smallest box, the
+    first on equal volumes (argmin's first index, as in JAX).
+
+    Args:
+      points: (P, 3) all levels' points; scales: (P,) level of each;
+      gt_boxes: (B, 6); gt_labels: (B,); gt_mask: (B,) bool.
+
+    Returns:
+      centerness_t (P,), bbox_t (P, 6) corner boxes, labels_t (P,) with
+      -1 for background.
+    """
+    n_levels = cfg.n_levels
+    p_cnt = points.shape[0]
+    fd = face_distances(points, gt_boxes)                     # (P, B, 6)
+    inside = (fd.amin(dim=-1) > 0) & gt_mask[None, :]         # (P, B)
+
+    levels = torch.arange(n_levels, device=points.device)
+    scale_onehot = (scales[:, None] == levels[None, :]).to(torch.float32)
+    n_pos_per_scale = scale_onehot.T @ inside.to(torch.float32)   # (L, B)
+    lower = n_pos_per_scale < cfg.pts_assign_threshold
+    extra = torch.arange(n_levels, 0, -1, device=points.device)[:, None]
+    lower_index = torch.clamp_min(
+        torch.argmax(lower.to(torch.int64) * extra, dim=0) - 1, 0)
+    all_upper = (~lower).all(dim=0)
+    best_scale = torch.where(all_upper, n_levels - 1, lower_index)
+    inside_best = best_scale[None, :] == scales[:, None]      # (P, B)
+
+    cness = centerness_from_faces(fd)                         # (P, B)
+    cness_m = torch.where(inside & inside_best, cness, -1.0)
+    k = min(cfg.pts_center_threshold + 1, p_cnt)
+    thresh = torch.topk(cness_m.T, k, dim=1).values[:, -1]    # (B,)
+    inside_top = cness_m > thresh[None, :]
+
+    volumes = torch.clamp_min(gt_boxes[:, 3:6], 0.0).prod(dim=-1)
+    vol = torch.where(inside & inside_best & inside_top,
+                      volumes[None, :].expand(p_cnt, -1), FLOAT_MAX)
+    min_vol = vol.amin(dim=1)
+    min_inds = torch.argmin(vol, dim=1)                       # first index
+    labels_t = torch.where(min_vol >= FLOAT_MAX, -1,
+                           gt_labels[min_inds].to(torch.int64))
+    fd_sel = fd[torch.arange(p_cnt, device=points.device), min_inds]
+    return centerness_from_faces(fd_sel), decode_bbox(points, fd_sel), \
+        labels_t
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus`: logaddexp(x, 0), with no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def sigmoid_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       gamma: float, alpha: float) -> torch.Tensor:
+    """(P, C) logits, (P,) labels (-1 = background) -> (P,) focal loss
+    summed over classes (mmdet FocalLoss).  The one-hot is a comparison
+    with arange(C), so -1 gives zeros as `jax.nn.one_hot` does."""
+    c = logits.shape[-1]
+    y = (labels[:, None] == torch.arange(c, device=labels.device)[None, :]) \
+        .to(logits.dtype)
+    p = torch.sigmoid(logits)
+    ce = softplus(-logits) * y + softplus(logits) * (1 - y)
+    p_t = p * y + (1 - p) * (1 - y)
+    alpha_t = alpha * y + (1 - alpha) * (1 - y)
+    return (alpha_t * (1 - p_t) ** gamma * ce).sum(dim=-1)
+
+
+def axis_aligned_iou(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of corner boxes (iou3d_calculator.py:180)."""
+    lt = torch.maximum(pred[..., :3], target[..., :3])
+    rb = torch.minimum(pred[..., 3:], target[..., 3:])
+    inter = torch.clamp_min(rb - lt, 0.0).prod(dim=-1)
+    v1 = torch.clamp_min(pred[..., 3:] - pred[..., :3], 0.0).prod(dim=-1)
+    v2 = torch.clamp_min(target[..., 3:] - target[..., :3], 0.0).prod(dim=-1)
+    return inter / torch.clamp_min(v1 + v2 - inter, 1e-12)
+
+
+def head_loss(head_outs, points_per_level: List[torch.Tensor],
+              valid_per_level: List[torch.Tensor], gt_boxes: torch.Tensor,
+              gt_labels: torch.Tensor, gt_mask: torch.Tensor,
+              cfg: HeadConfig):
+    """Single-scene head loss (`_loss_by_feat_single`, :206-257): focal
+    classification over valid points, centerness BCE and centerness-
+    weighted (1 - IoU) over positives.
+
+    Returns:
+      dict(center_loss, bbox_loss, cls_loss), dict(n_pos=local count).
+    """
+    if cfg.with_yaw:
+        raise NotImplementedError("the rotated (ARKit) head loss is not "
+                                  "ported yet")
+    center = torch.cat([o[0][:, 0] for o in head_outs])
+    reg = torch.cat([o[1] for o in head_outs])
+    cls = torch.cat([o[2] for o in head_outs])
+    valid = torch.cat(valid_per_level)
+    points = torch.cat(points_per_level)
+    scales = torch.cat([torch.full((p.shape[0],), i, dtype=torch.int64,
+                                   device=p.device)
+                        for i, p in enumerate(points_per_level)])
+
+    cness_t, bbox_t, labels_t = assign_targets(points, scales, gt_boxes,
+                                               gt_labels, gt_mask, cfg)
+    pos = (labels_t >= 0) & valid
+    n_pos_local = pos.to(torch.float32).sum()
+    n_pos = torch.clamp_min(n_pos_local, 1.0)
+
+    cls_labels = torch.where(valid, labels_t, -1)
+    focal = sigmoid_focal_loss(cls, cls_labels, cfg.focal_gamma,
+                               cfg.focal_alpha)
+    cls_loss = torch.where(valid, focal, 0.0).sum() / n_pos
+
+    bce = softplus(-center) * cness_t + softplus(center) * (1 - cness_t)
+    center_loss = torch.where(pos, bce, 0.0).sum() / n_pos
+
+    iou_loss = 1.0 - axis_aligned_iou(decode_bbox(points, reg), bbox_t)
+    w = torch.where(pos, cness_t, 0.0)
+    bbox_loss = (iou_loss * w).sum() / torch.clamp_min(w.sum(), 1e-6)
+
+    losses = dict(center_loss=center_loss * cfg.center_loss_weight,
+                  bbox_loss=bbox_loss * cfg.bbox_loss_weight,
+                  cls_loss=cls_loss * cfg.cls_loss_weight)
+    return losses, dict(n_pos=n_pos_local)
 
 
 def decode_bbox(points: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:

@@ -44,15 +44,62 @@ def group_size(channels: int) -> int:
     return max(d for d in (8, 4, 2, 1) if channels % d == 0)
 
 
+class BatchNorm(nn.Module):
+    """flax `nn.BatchNorm(momentum=0.9, epsilon=1e-5)` over all axes but 1.
+
+    Eval (`train=False`) normalises with the running statistics.  Train
+    normalises with the batch's statistics, computed as flax computes them
+    (mean, and var = E[x^2] - E[x]^2 clipped at 0), and moves the running
+    statistics 0.1 of the way to them.  The running variance takes the
+    biased batch variance, as flax's does; torch's own BatchNorm would
+    take the unbiased one, m / (m - 1) larger (ROADMAP trap T4).  The
+    update is made in place, once per forward: a forward run twice under
+    `torch.utils.checkpoint` would update twice.
+    """
+
+    def __init__(self, features: int, eps: float = 1e-5,
+                 momentum: float = 0.1):
+        super().__init__()
+        self.eps = eps
+        self.momentum = momentum
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if not train:
+            return nn.functional.batch_norm(
+                x, self.running_mean, self.running_var, self.weight,
+                self.bias, False, 0.0, self.eps)
+        dims = [0] + list(range(2, x.ndim))
+        mean = x.mean(dim=dims)
+        var = torch.clamp_min((x * x).mean(dim=dims) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        shape = (1, -1) + (1,) * (x.ndim - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean.reshape(shape)) * mul.reshape(shape) \
+            + self.bias.reshape(shape)
+
+
+class GroupNorm(nn.GroupNorm):
+    """GroupNorm that takes (and ignores) the train flag: it normalises
+    each sample by itself in train and eval alike."""
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return super().forward(x)
+
+
 def _norm_layer(norm: str, channels: int) -> nn.Module:
-    """Eval-mode normalisation of a 3D block: 'batch' uses its running
-    statistics, 'group' is GroupNorm; train-mode BatchNorm comes with the
-    training slice."""
+    """Normalisation of a 3D block: 'batch' is `BatchNorm` (batch statistics
+    in train, running ones in eval), 'group' is GroupNorm."""
     if norm == "batch":
-        return nn.BatchNorm3d(channels, eps=1e-5, momentum=0.1)
+        return BatchNorm(channels)
     if norm == "group":
-        return nn.GroupNorm(channels // group_size(channels), channels,
-                            eps=1e-5)
+        return GroupNorm(channels // group_size(channels), channels, eps=1e-5)
     raise ValueError(f"unknown norm {norm!r}")
 
 
@@ -67,8 +114,8 @@ class ConvBnReLU(nn.Module):
         self.norm = _norm_layer(norm, features)
         self.relu = relu
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.norm(self.conv(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = self.norm(self.conv(x), train)
         return torch.relu(x) if self.relu else x
 
 
@@ -91,5 +138,5 @@ class DeconvBnReLU(nn.Module):
                                        bias=False)
         self.norm = _norm_layer(norm, features)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.norm(self.conv(x)))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return torch.relu(self.norm(self.conv(x), train))

@@ -1,4 +1,4 @@
-"""MVSDet predict path (port of mvsdet_tpu/models/mvsdet.py).
+"""MVSDet forward, loss and predict (port of mvsdet_tpu/models/mvsdet.py).
 
   images (N, H, W, 3)
     -> ResNet-50 + FPN level 0                  (N, h, w, C) channels-last
@@ -11,18 +11,21 @@
   and the Gaussian branch: top-3 source views per render target ->
   per-pixel Gaussians -> tile splatting (CUDA compositor on the card).
 
-Eval mode only in this slice; `loss`, train-mode BatchNorm, view
-sharding, the rotated ARKit head and per-view intrinsics come later.
-The plane sweep is the bilinear gather (`sweep_method="gather"` of the
-JAX module).  Public tensors keep the JAX package's channels-last layout.
+`forward(batch, train)` is `MVSDet.__call__`; `loss` adds the head
+losses, the novel-view MSE and the optional depth L1.  View sharding, the
+rotated ARKit head, per-view intrinsics and CostRegNet's BatchNorm mode in
+training come later.  The plane sweep is the bilinear gather
+(`sweep_method="gather"` of the JAX module).  Public tensors keep the JAX
+package's channels-last layout.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mvsdet_torch.config import Config, ModelConfig
 from mvsdet_torch.geometry.cameras import (full_projection,
@@ -36,7 +39,7 @@ from mvsdet_torch.models.cost_reg import CostRegNet
 from mvsdet_torch.models.fpn import FPN
 from mvsdet_torch.models.gaussian_head import (Gaussians, ToGaussians,
                                                adapt_gaussians)
-from mvsdet_torch.models.head import DetectionHead, head_predict
+from mvsdet_torch.models.head import DetectionHead, head_loss, head_predict
 from mvsdet_torch.models.neck3d import IndoorImVoxelNeck
 from mvsdet_torch.models.resnet import ResNet50
 from mvsdet_torch.ops.plane_sweep import plane_sweep_variance_for_refs
@@ -52,17 +55,25 @@ def _upsample_valid(valid_count: torch.Tensor, shape3) -> torch.Tensor:
 
 
 class MVSDet(nn.Module):
-    """Single-scene MVSDet forward and predict (eval mode)."""
+    """Single-scene MVSDet forward, loss and predict.
 
-    def __init__(self, cfg: ModelConfig, sweep_chunk: int = 8):
+    ``sweep_remat`` recomputes each sweep chunk (plane sweep and
+    CostRegNet) in backward instead of keeping its activations, the
+    counterpart of `nn.remat` at mvsdet_tpu/models/mvsdet.py:157.
+    """
+
+    def __init__(self, cfg: ModelConfig, sweep_chunk: int = 8,
+                 sweep_remat: bool = True):
         super().__init__()
         if cfg.gs.splat_impl != "tiled":
             raise NotImplementedError("only the tiled splatting path is "
                                       "ported")
         self.cfg = cfg
         self.sweep_chunk = sweep_chunk
+        self.sweep_remat = sweep_remat
         c = cfg.backbone.fpn_out_channels
-        self.backbone = ResNet50(depth=cfg.backbone.depth)
+        self.backbone = ResNet50(depth=cfg.backbone.depth,
+                                 frozen_stages=cfg.backbone.frozen_stages)
         self.fpn = FPN(out_channels=c)
         self.cost_reg = CostRegNet(in_channels=c, norm=cfg.cost_reg_norm)
         self.neck3d = IndoorImVoxelNeck(in_channels=c,
@@ -80,13 +91,23 @@ class MVSDet(nn.Module):
         return self.fpn(feats)[0].permute(0, 2, 3, 1).contiguous()
 
     def depth_probabilities(self, features: torch.Tensor, proj44: torch.Tensor,
-                            neighbor_ids: torch.Tensor):
+                            neighbor_ids: torch.Tensor, train: bool = False):
         """View-chunked plane sweep + cost regularisation.
+
+        With gradients on and ``sweep_remat``, each chunk runs under
+        `torch.utils.checkpoint`: only its inputs are kept, and backward
+        runs its forward again.
 
         Returns (prob, off), both (N, D, h, w): prob softmaxed over D,
         off sigmoided (mvsdet.py:470-475).
         """
         mc = self.cfg
+        if mc.cost_reg_norm == "batch" and train:
+            # the JAX module collapses the sweep to one full-batch chunk
+            # (mvsdet.py:128-139); under checkpoint, BatchNorm's running
+            # statistics would also be updated a second time in backward
+            raise NotImplementedError("training CostRegNet in BatchNorm "
+                                      "mode is not ported yet")
         n = features.shape[0]
         depths = depth_plane_values(*mc.near_far_range,
                                     mc.gs.num_depth_planes,
@@ -95,13 +116,21 @@ class MVSDet(nn.Module):
         if n % chunk != 0:
             chunk = 1 if n < chunk else max(
                 c for c in range(1, chunk + 1) if n % c == 0)
-        probs, offs = [], []
-        for ref_ids in torch.arange(n, device=features.device).reshape(-1, chunk):
+
+        def step(ref_ids):
             var = plane_sweep_variance_for_refs(
                 features, proj44, ref_ids, neighbor_ids[ref_ids], depths)
-            out = self.cost_reg(var.permute(0, 4, 1, 2, 3).contiguous())
-            probs.append(torch.softmax(out[:, 0], dim=1))
-            offs.append(torch.sigmoid(out[:, 1]))
+            out = self.cost_reg(var.permute(0, 4, 1, 2, 3).contiguous(),
+                                train)
+            return torch.softmax(out[:, 0], dim=1), torch.sigmoid(out[:, 1])
+
+        remat = self.sweep_remat and torch.is_grad_enabled()
+        probs, offs = [], []
+        for ref_ids in torch.arange(n, device=features.device).reshape(-1, chunk):
+            p, o = (checkpoint(step, ref_ids, use_reentrant=False) if remat
+                    else step(ref_ids))
+            probs.append(p)
+            offs.append(o)
         return torch.cat(probs), torch.cat(offs)
 
     def sample_depth(self, prob: torch.Tensor, off: torch.Tensor):
@@ -172,9 +201,11 @@ class MVSDet(nn.Module):
 
     # -- full forward ------------------------------------------------------
 
-    def extract_feat(self, batch: Dict[str, torch.Tensor]):
+    def extract_feat(self, batch: Dict[str, torch.Tensor],
+                     train: bool = False):
         """Backbone -> sweep -> depth -> lift -> neck, and the Gaussian
-        branch when the batch holds render targets.
+        branch when the batch holds render targets.  ``train`` runs the
+        neck's BatchNorm on batch statistics and updates its running ones.
 
         `batch` (one scene): images (N, H, W, 3) normalised;
         denorm_images (N, H, W, 3); w2c (N, 4, 4); intrinsic (4, 4) K at
@@ -195,7 +226,8 @@ class MVSDet(nn.Module):
         neighbor_ids = knn_camera_neighbors(
             src_c2w[:, :3, 3], min(mc.plane_sweep_neighbors, n - 1))
 
-        prob, off = self.depth_probabilities(feats, proj44, neighbor_ids)
+        prob, off = self.depth_probabilities(feats, proj44, neighbor_ids,
+                                             train)
         est_depth, est_prob, depth_expect = self.sample_depth(prob, off)
 
         points = voxel_points(mc.n_voxels, mc.voxel_size,
@@ -206,7 +238,7 @@ class MVSDet(nn.Module):
         volume = finalize_volume(vol_sum, valid_cnt)          # (V, C)
         nx, ny, nz = mc.n_voxels
         volume = volume.reshape(nx, ny, nz, -1).permute(3, 0, 1, 2)[None]
-        levels = self.neck3d(volume.contiguous())
+        levels = self.neck3d(volume.contiguous(), train)
 
         gaussians = None
         if "tgt_c2w" in batch:
@@ -244,9 +276,10 @@ class MVSDet(nn.Module):
         valids = [_upsample_valid(valid_count, s).reshape(-1) for s in sizes]
         return pts, valids
 
-    def forward(self, batch: Dict[str, torch.Tensor]) -> Dict:
-        """Raw eval-mode outputs (`MVSDet.__call__(train=False)`)."""
-        out = self.extract_feat(batch)
+    def forward(self, batch: Dict[str, torch.Tensor],
+                train: bool = False) -> Dict:
+        """Raw outputs (`MVSDet.__call__(train)`)."""
+        out = self.extract_feat(batch, train)
         head_outs = self.head(out["levels"])
         pts, valids = self._head_points_and_valid(out["valid_count"],
                                                   batch["origin"])
@@ -255,6 +288,36 @@ class MVSDet(nn.Module):
             result["rendered"] = self.render_targets(
                 out["gaussians"], batch, tuple(batch["gt_images"].shape[1:3]))
         return result
+
+    def loss(self, batch: Dict[str, torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Training losses (`MVSDet.loss`, mvsdet.py:462-498): the head's
+        center, bbox and cls terms, `loss_nvs` (MSE of the rendered
+        targets) when the batch holds them, and `loss_depth` (L1 against
+        the source views' depth resized to the feature grid) with
+        `depth_supervision`.  Runs the forward in train mode.
+
+        Returns (total, aux): aux holds every term and `n_pos`.
+        """
+        mc = self.cfg
+        result = self(batch, train=True)
+        losses, aux = head_loss(
+            result["head_outs"], result["points"], result["valids"],
+            batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"], mc.head)
+        if "rendered" in result and mc.rgb_supervision:
+            losses["loss_nvs"] = torch.mean(
+                (result["rendered"] - batch["gt_images"]) ** 2)
+        if mc.depth_supervision and "depth" in batch:
+            est = result["depth_expect"]                      # (N, h, w)
+            gt = bilinear_resize(batch["depth"][..., None],
+                                 tuple(est.shape[1:3]))[..., 0]
+            mask = gt > 0
+            losses["loss_depth"] = (
+                torch.where(mask, (est - gt).abs(), 0.0).sum()
+                / torch.clamp_min(mask.sum().to(est.dtype), 1.0))
+        total = sum(losses.values())
+        aux.update(losses)
+        return total, aux
 
     @torch.no_grad()
     def predict(self, batch: Dict[str, torch.Tensor]) -> Dict:

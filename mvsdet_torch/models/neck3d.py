@@ -3,7 +3,9 @@
 `IndoorImVoxelNeck` (imvoxel_neck.py:70-170): three scales of residual 3D
 blocks with stride-2 downsampling, top-down 2x transposed-conv fusion, a
 3x3x3 out-block per scale.  Input (1, C, nx, ny, nz); returns three
-levels, finest first, at `out_channels`.  BatchNorm runs in eval mode.
+levels, finest first, at `out_channels`.  BatchNorm takes the batch's
+statistics and updates its running ones when `train` is set, as flax's
+does, and the running statistics otherwise.
 """
 
 from __future__ import annotations
@@ -28,10 +30,10 @@ class ResModule3D(nn.Module):
             self.downsample = ConvBnReLU(in_channels, features, kernel=1,
                                          stride=stride, relu=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.conv2(self.conv1(x))
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        y = self.conv2(self.conv1(x, train), train)
         if self.has_downsample:
-            x = self.downsample(x)
+            x = self.downsample(x, train)
         return torch.relu(x + y)
 
 
@@ -63,18 +65,19 @@ class IndoorImVoxelNeck(nn.Module):
                                 ConvBnReLU(c // 2, c // 2))
             self.add_module(f"out{i}", ConvBnReLU(chans[i], out_channels))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                train: bool = False) -> List[torch.Tensor]:
         n_scales = len(self.n_blocks)
         down_outs = []
         for i in range(n_scales):
             for b in range(self.n_blocks[i]):
-                x = getattr(self, f"down{i}_block{b}")(x)
+                x = getattr(self, f"down{i}_block{b}")(x, train)
             down_outs.append(x)
         outs = []
         for i in range(n_scales - 1, -1, -1):
             if i < n_scales - 1:
-                x = getattr(self, f"up{i + 1}_deconv")(x)
-                x = getattr(self, f"up{i + 1}_conv")(x)
+                x = getattr(self, f"up{i + 1}_deconv")(x, train)
+                x = getattr(self, f"up{i + 1}_conv")(x, train)
                 x = down_outs[i] + x
-            outs.append(getattr(self, f"out{i}")(x))
+            outs.append(getattr(self, f"out{i}")(x, train))
         return outs[::-1]

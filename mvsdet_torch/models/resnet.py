@@ -4,7 +4,9 @@ mvsdet_tpu/models/resnet.py).
 torchvision-style ResNet-50, 'pytorch' blocks (stride on the 3x3), every
 BN frozen, four stages out (C2..C5 at strides 4/8/16/32).  Submodule
 names follow the JAX parameter tree (`stem_conv`, `layer1_block0.conv1`,
-...).  Stage freezing is a training matter and comes with that slice.
+...).  `frozen_stages=1` freezes the stem and layer1: their parameters
+take no gradient and layer1's output is detached, so no backward runs
+through them (mvsdet_tpu/models/resnet.py:100-103).
 """
 
 from __future__ import annotations
@@ -49,8 +51,9 @@ class Bottleneck(nn.Module):
 class ResNet50(nn.Module):
     """Returns (C2, C3, C4, C5) from (N, 3, H, W) images."""
 
-    def __init__(self, depth: int = 50):
+    def __init__(self, depth: int = 50, frozen_stages: int = 1):
         super().__init__()
+        self.frozen_stages = frozen_stages
         self.stem_conv = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
         self.stem_bn = FrozenBatchNorm(64)
         self.stages = []
@@ -65,13 +68,20 @@ class ResNet50(nn.Module):
                 in_ch = width * 4
             self.stages.append(names)
             width *= 2
+        frozen = ("stem_",) + tuple(f"layer{i + 1}_"
+                                    for i in range(frozen_stages))
+        for name, param in self.named_parameters():
+            if frozen_stages > 0 and name.startswith(frozen):
+                param.requires_grad_(False)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = torch.relu(self.stem_bn(self.stem_conv(x)))
         x = nn.functional.max_pool2d(x, 3, 2, padding=1)
         outs = []
-        for names in self.stages:
+        for stage, names in enumerate(self.stages):
             for name in names:
                 x = getattr(self, name)(x)
+            if stage < self.frozen_stages:
+                x = x.detach()      # both this output and the next stage
             outs.append(x)
         return tuple(outs)

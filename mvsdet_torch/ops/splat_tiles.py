@@ -119,27 +119,37 @@ def render_views_tiled(means, covariances, harmonics, opacities, c2ws,
                        intrinsics_norm, image_shape,
                        background: Optional[torch.Tensor] = None,
                        capacity: int = 1024,
-                       near_clip: float = 0.2) -> torch.Tensor:
-    """Render every target view in one compositor launch, (T, H, W, 3).
+                       near_clip: float = 0.2,
+                       values_override: Optional[torch.Tensor] = None
+                       ) -> torch.Tensor:
+    """Render every target view in one compositor launch, (T, H, W, C).
 
     View t's 2D means are shifted by t * tiles_y * 16 in y, so the
     concatenated tile list reads to the compositor's `t // tiles_x` pixel
     map as one tall canvas of vertically stacked views; the shift cancels
-    in the kernel's dx, dy.
+    in the kernel's dx, dy.  Gradients reach the Gaussians through the
+    compositor's backward, the tile-table gather and the shift; the
+    binning (which slots a Gaussian fills) takes none, as under JAX's
+    `stop_gradient`.
 
     Args:
       c2ws: (T, 4, 4); intrinsics_norm: (T, 3, 3) normalised K.
+      values_override: optional (T, G, C) per-view composited values (a
+        camera depth, say); default the SH colour, C = 3.
     """
     h, w = image_shape
     tiles_y = -(-h // TILE)
     tiles_x = -(-w // TILE)
     t_views = c2ws.shape[0]
+    n_ch = 3 if values_override is None else values_override.shape[-1]
     if background is None:
-        background = torch.zeros(3, dtype=torch.float32, device=means.device)
+        background = torch.zeros(n_ch, dtype=torch.float32,
+                                 device=means.device)
 
     datas, valss = [], []
     for t in range(t_views):
-        values = _sh_values(means, harmonics, c2ws[t])
+        values = (_sh_values(means, harmonics, c2ws[t])
+                  if values_override is None else values_override[t])
         data, vals = _tile_tables(means, covariances, values, opacities,
                                   c2ws[t], intrinsics_norm[t], image_shape,
                                   capacity, near_clip)
@@ -150,8 +160,8 @@ def render_views_tiled(means, covariances, harmonics, opacities, c2ws,
     n_tiles = tiles_y * tiles_x
     out = composite_tiles(torch.cat(datas).contiguous(),
                           torch.cat(valss).contiguous(), tiles_x)
-    out = out.reshape(t_views, n_tiles, 4, TILE * TILE)
+    out = out.reshape(t_views, n_tiles, n_ch + 1, TILE * TILE)
     return torch.stack([
-        _assemble_tiles(out[t], tiles_y, tiles_x, 3, h, w, background)
+        _assemble_tiles(out[t], tiles_y, tiles_x, n_ch, h, w, background)
         for t in range(t_views)
     ])
