@@ -9,16 +9,18 @@ Phases, each printed as one JSON line:
   device   the card's name and power limit (as nvidia-smi prints them, on
            a line of their own), torch and CUDA versions
   build    compile the five kernels from the four sources in
-           `mvsdet_torch/ops/csrc` for sm_90a, one nvcc per source, all
-           started together
+           `mvsdet_torch/ops/csrc` (and the header the compositor's two
+           share) for sm_90a, one nvcc per source, all started together
   K1       the tile compositor against its plain version on random tables
            at the predict (T=80) and training (T=160) shapes, K=2048, C=3,
-           30% empty slots: max abs error <= 1e-4
+           30% empty slots: max abs error <= 1e-4, and a second launch
+           bit-equal to the first
   K2       its backward against the plain version (autograd of the plain
            compositor) at T=160, K=2048, C=3, with a random cotangent whose
            transmittance row is not 0 (ScanNet's black background never
            exercises it) and slots clipped at alpha 0.99: max error
-           <= 1e-4 of max |plain| for ddata and for dvals
+           <= 1e-4 of max |plain| for ddata and for dvals, and a second
+           launch bit-equal to the first
   K3       the voxel-lift gather against its plain version and against
            F.embedding_bag at N=80, HW=4800, C=256, V=25600: max error
            <= 1e-5 of max |out|
@@ -47,11 +49,27 @@ Phases, each printed as one JSON line:
            kernels, then with the plain versions, cuDNN deterministic:
            every loss term <= 1e-5 relative, every parameter's gradient
            <= 1e-4 (|delta| / |plain|)
+  cull     the compositor kernels' own cull boxes (`cull_boxes`) on the
+           tables the predict and the training step gave K1, taken through
+           the recorders: the slots `cull_boxes_reference` keeps, boxes
+           within 1e-3 px of its boxes, no active pair outside its slot's
+           box; and the work the cull leaves (pairs in a box, listed
+           (warp patch, slot) pairs, per-CTA load)
   kernels  every kernel with its launches in the train run (and, for K1
-           and K3, in the predict run), its error, its time, its plain
-           version's time, its bound and the time of one PyTorch call
-           computing the same function, at the inputs the train step gave
-           it
+           and K3, in the predict run), its error, its time queued behind
+           a device wait (`ms`) and host-paced as before the wait was added
+           (`host_paced_ms`), its plain version's time, its bound and the
+           time of one PyTorch call computing the same function, at the
+           inputs the train step gave it; K1's time on the predict's
+           tables; for K1 and K2 also the bound that charges the cull test
+           to every pair (`all_pairs_bound_ms`, the count before the
+           kernels culled by box)
+
+    python3 chip_smoke.py --save-compositor-inputs PATH
+
+also saves the inputs the step and the predict gave K1 and K2, on which
+`mvsdet_torch/tools/time_compositor.py` times the compositor of any
+checkout with this script's `cuda_ms`.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises,
 and the script exits non-zero without that line.  TF32 is off throughout
@@ -61,6 +79,7 @@ latencies from the host clock around work that ends in a copy to host.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import json
 import statistics
@@ -79,6 +98,9 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 N_SCENES = 3
 TRAIN_STEPS = 3
+# ~5 ms of device time at the H100's 1.98 GHz boost clock: more than the
+# host takes to enqueue one trial of `cuda_ms`
+QUEUE_AHEAD_CYCLES = 10_000_000
 SOURCES = ("composite_tiles", "composite_tiles_bwd", "weighted_gather_sum",
            "weighted_gather_sum_bwd")
 
@@ -87,13 +109,23 @@ def emit(**fields):
     print(json.dumps(fields), flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, trials: int = 5) -> float:
-    """Median over `trials` of the mean CUDA-event time of `reps` calls."""
+def cuda_ms(fn, reps: int = 20, trials: int = 5,
+            queued: bool = True) -> float:
+    """Median over `trials` of the mean CUDA-event time of `reps` calls.
+
+    With `queued`, each trial waits behind a device sleep of
+    QUEUE_AHEAD_CYCLES, so the host has enqueued its launches before the
+    first one starts and a kernel shorter than the wrapper's host cost is
+    timed on the device.  Without it (how the kernels were timed before the
+    wait was added), a call is timed at the rate the host issues it: the
+    wrapper's host cost, where that is longer than the kernel."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(trials):
+        if queued:
+            torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -132,51 +164,130 @@ def random_tables(n_tiles: int, k: int, c: int, g: torch.Generator,
     return data, vals
 
 
-def active_pairs(data: torch.Tensor, tiles_x: int) -> int:
-    """(pixel, slot) pairs the compositor does not cull on this data."""
+def active_chunks(data: torch.Tensor, tiles_x: int, step: int = 16):
+    """The compositor's active mask on this data, `step` tiles at a time:
+    (first tile, (n, 256, K) mask, (n, 256) px, (n, 256) py)."""
     from mvsdet_torch.ops.splat_kernel import (ALPHA_MAX, ALPHA_MIN,
                                                _tile_pixel_coords)
     n_tiles = data.shape[0]
     px, py = _tile_pixel_coords(n_tiles, tiles_x, data.device)
-    active = 0
-    for t0 in range(0, n_tiles, 16):
-        d = data[t0:t0 + 16, :, None, :]
-        dx = px[t0:t0 + 16, :, None] - d[:, 0]
-        dy = py[t0:t0 + 16, :, None] - d[:, 1]
+    for t0 in range(0, n_tiles, step):
+        d = data[t0:t0 + step, :, None, :]
+        dx = px[t0:t0 + step, :, None] - d[:, 0]
+        dy = py[t0:t0 + step, :, None] - d[:, 1]
         power = -0.5 * (d[:, 2] * dx * dx + d[:, 4] * dy * dy) \
             - d[:, 3] * dx * dy
         alpha = torch.clamp_max(d[:, 5] * torch.exp(power.clamp_max(0.0)),
                                 ALPHA_MAX)
-        active += int(((power <= 0) & (alpha >= ALPHA_MIN)).sum())
-    return active
+        yield (t0, (power <= 0) & (alpha >= ALPHA_MIN), px[t0:t0 + step],
+               py[t0:t0 + step])
 
 
-def k1_bound(data: torch.Tensor, vals: torch.Tensor, tiles_x: int):
-    """Least time for the compositor on these inputs: each table read
-    once and the output written once, against 12 flops per (pixel, slot)
-    pair to find whether it is culled plus 2C + 3 (accumulation, exp,
-    log1p, the transmittance exp) per pair that this data leaves active."""
+def cull_check(data: torch.Tensor, tiles_x: int) -> dict:
+    """The kernels' own cull (`cull_boxes`) on these tables: whether it
+    keeps the slots `cull_boxes_reference` keeps and how far its boxes
+    are from the reference's; active pairs, active pairs outside their
+    slot's box or in a dropped slot (must be 0), pairs in a kept slot's
+    box; the (8x4-pixel warp patch, slot) pairs the kernels list (a kept
+    box meets the patch) and how evenly the (tile, segment) CTAs share
+    the listed and the active pairs."""
+    from mvsdet_torch.ops.splat_kernel import (PIXELS, SEGMENT, TILE,
+                                               cull_boxes,
+                                               cull_boxes_reference)
+    n_tiles, _, k = data.shape
+    keep, box = cull_boxes(data)
+    want_keep, want_box = cull_boxes_reference(data)
+    kept = keep[:, None].expand_as(box)
+    box_diff = float((box[kept] - want_box[kept]).nan_to_num(nan=0.0)
+                     .abs().max()) if bool(keep.any()) else 0.0
+    active = outside = in_box = 0
+    active_slot = torch.zeros(n_tiles, k, device=data.device)
+    for t0, act, px, py in active_chunks(data, tiles_x):
+        b = box[t0:t0 + act.shape[0], :, None, :]
+        x, y = px[..., None], py[..., None]
+        inside = keep[t0:t0 + act.shape[0], None, :] \
+            & (x >= b[:, 0]) & (x <= b[:, 1]) & (y >= b[:, 2]) \
+            & (y <= b[:, 3])
+        active += int(act.sum())
+        outside += int((act & ~inside).sum())
+        in_box += int(inside.sum())
+        active_slot[t0:t0 + act.shape[0]] = act.sum(1)
+    t = torch.arange(n_tiles, device=data.device)
+    w = torch.arange(8, device=data.device)
+    x0 = (((t % tiles_x) * TILE)[:, None] + (w % 2) * 8)[..., None].float()
+    y0 = (((t // tiles_x) * TILE)[:, None] + (w // 2) * 4)[..., None].float()
+    b = box[:, None]                                          # (T, 1, 4, K)
+    listed = (keep[:, None] & (b[:, :, 0] <= x0 + 7) & (b[:, :, 1] >= x0)
+              & (b[:, :, 2] <= y0 + 3) & (b[:, :, 3] >= y0)).sum(1)
+    n_seg = -(-k // SEGMENT)
+
+    def per_cta(x):                                           # (T, K) -> CTAs
+        return torch.nn.functional.pad(x.float(), (0, n_seg * SEGMENT - k)) \
+            .reshape(n_tiles, n_seg, SEGMENT).sum(-1).flatten()
+
+    listed_cta, active_cta = per_cta(listed), per_cta(active_slot)
+    pairs = n_tiles * PIXELS * k
+    return dict(keep_equals_reference=bool(torch.equal(keep, want_keep)),
+                box_max_abs_diff_from_reference=box_diff,
+                active_pairs=active, active_outside_box=outside,
+                in_box_pairs=in_box, active_share=active / pairs,
+                in_box_share=in_box / pairs, kept_slots=int(keep.sum()),
+                kept_slot_share=float(keep.float().mean()),
+                listed_warp_slots=int(listed.sum()),
+                listed_lane_use=active / max(32 * int(listed.sum()), 1),
+                ctas=n_tiles * n_seg,
+                ctas_with_no_listed_slot=int((listed_cta == 0).sum()),
+                listed_per_cta_mean=float(listed_cta.mean()),
+                listed_per_cta_max=float(listed_cta.max()),
+                active_per_cta_mean=float(active_cta.mean()),
+                active_per_cta_max=float(active_cta.max()))
+
+
+def check_cull(cull: dict, tables: str):
+    check(cull["active_outside_box"] == 0,
+          f"{tables} tables: {cull['active_outside_box']} active pairs "
+          f"outside their cull box")
+    check(cull["keep_equals_reference"],
+          f"{tables} tables: the kernels keep other slots than "
+          f"cull_boxes_reference")
+    check(cull["box_max_abs_diff_from_reference"] <= 1e-3,
+          f"{tables} tables: the kernels' boxes differ from "
+          f"cull_boxes_reference by {cull['box_max_abs_diff_from_reference']}"
+          f" px")
+
+
+def k1_bound(data: torch.Tensor, vals: torch.Tensor, cull: dict,
+             all_pairs: bool = False):
+    """Least time for the compositor on these inputs: each table read once
+    and the output written once, against 12 flops to test whether a
+    (pixel, slot) pair is active, for each pair in a kept slot's cull box
+    (`cull_check`: every other pair is culled by its slot's box, computed
+    once per slot), plus 2C + 3 (accumulation, exp, log1p, the
+    transmittance exp) per pair that this data leaves active.  With
+    `all_pairs`, the test is charged to every pair, as the bound was
+    counted before the kernels culled by box."""
     from mvsdet_torch.ops.splat_kernel import PIXELS
     n_tiles, _, k = data.shape
     c = vals.shape[1]
-    ops = 12 * n_tiles * PIXELS * k + (2 * c + 3) * active_pairs(data,
-                                                                 tiles_x)
+    tested = n_tiles * PIXELS * k if all_pairs else cull["in_box_pairs"]
+    ops = 12 * tested + (2 * c + 3) * cull["active_pairs"]
     nbytes = 4 * (data.numel() + vals.numel() + n_tiles * (c + 1) * PIXELS)
     return bound(nbytes, ops)
 
 
-def k2_bound(data: torch.Tensor, vals: torch.Tensor, tiles_x: int):
+def k2_bound(data: torch.Tensor, vals: torch.Tensor, cull: dict,
+             all_pairs: bool = False):
     """Least time for the compositor's backward on these inputs: the
     tables and the cotangent read once, ddata and dvals written once,
-    against 12 flops per (pixel, slot) pair for the cull test plus, per
-    active pair, 4C + 34 (three transcendentals, u, dalpha, the suffix
-    sum, the six data-row terms, dvals, and the sums over the tile's
-    pixels)."""
+    against the 12-flop test per pair in a kept slot's box (per pair with
+    `all_pairs`, as in `k1_bound`) plus, per active pair, 4C + 34 (three
+    transcendentals, u, dalpha, the suffix sum, the six data-row terms,
+    dvals, and the sums over the tile's pixels)."""
     from mvsdet_torch.ops.splat_kernel import PIXELS
     n_tiles, _, k = data.shape
     c = vals.shape[1]
-    ops = 12 * n_tiles * PIXELS * k + (4 * c + 34) * active_pairs(data,
-                                                                  tiles_x)
+    tested = n_tiles * PIXELS * k if all_pairs else cull["in_box_pairs"]
+    ops = 12 * tested + (4 * c + 34) * cull["active_pairs"]
     nbytes = 4 * (2 * data.numel() + 2 * vals.numel()
                   + n_tiles * (c + 1) * PIXELS)
     return bound(nbytes, ops)
@@ -283,7 +394,13 @@ def detached(args):
                  for a in args)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--save-compositor-inputs", metavar="PATH",
+        help="also torch.save the inputs the training step and the predict "
+             "gave K1 and K2 (for mvsdet_torch/tools/time_compositor.py)")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -344,27 +461,34 @@ def main() -> int:
     # -- K1 and K2 on random tables ------------------------------------
     for n_tiles in (80, 160):
         data, vals = random_tables(n_tiles, 2048, 3, g)
-        err = (composite_tiles(data, vals, 10)
-               - composite_tiles_reference(data, vals, 10)).abs().max().item()
+        got = composite_tiles(data, vals, 10)
+        err = (got - composite_tiles_reference(data, vals, 10)).abs().max() \
+            .item()
+        same = torch.equal(got, composite_tiles(data, vals, 10))
         emit(phase="K1", tiles=n_tiles, k=2048, c=3, max_abs_err=err,
+             bit_equal_relaunch=same,
              ms=cuda_ms(lambda: composite_tiles(data, vals, 10)),
              plain_ms=cuda_ms(lambda: composite_tiles_reference(
                  data, vals, 10), reps=3))
         check(err <= 1e-4, f"K1 at T={n_tiles}: max abs error {err} > 1e-4")
+        check(same, f"K1 at T={n_tiles}: two launches differ")
 
     data, vals = random_tables(160, 2048, 3, g, clipped=0.05)
     cot = torch.randn(160, 4, 256, device="cuda", generator=g)
     got = composite_tiles_bwd(data, vals, cot, 10)
     want = composite_tiles_bwd_reference(data, vals, cot, 10)
+    again = composite_tiles_bwd(data, vals, cot, 10)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
     errs = [rel_err(a, b) for a, b in zip(got, want)]
     emit(phase="K2", tiles=160, k=2048, c=3, ddata_rel_err=errs[0],
-         dvals_rel_err=errs[1],
+         dvals_rel_err=errs[1], bit_equal_relaunch=same,
          ms=cuda_ms(lambda: composite_tiles_bwd(data, vals, cot, 10)),
          plain_ms=cuda_ms(lambda: composite_tiles_bwd_reference(
              data, vals, cot, 10), reps=3))
     check(max(errs) <= 1e-4, f"K2: errors {errs} > 1e-4 of max |plain|")
     check(bool((got[0][:, 6:] == 0).all()), "K2: ddata rows 6-7 not zero")
-    del data, vals, cot, got, want
+    check(same, "K2: two launches differ")
+    del data, vals, cot, got, want, again
 
     # -- K3 on random inputs -------------------------------------------
     n, hw, c, v = 80, 4800, 256, 25600
@@ -473,6 +597,11 @@ def main() -> int:
     check(rend_err <= 1e-4, f"rendered differs by {rend_err} > 1e-4")
     check(vol_rel <= 1e-5, f"lifted volume differs by {vol_rel} > 1e-5")
     check(boxes_equal, "kept boxes or labels differ under the mask")
+    k1_predict_args = detached(ck.args)
+    cull = cull_check(k1_predict_args[0], k1_predict_args[2])
+    emit(phase="cull", tables="predict", tiles=k1_predict_args[0].shape[0],
+         k=k1_predict_args[0].shape[2], **cull)
+    check_cull(cull, "predict")
     del model, predict, scenes, preds, runs, pk, pp, lk, lp, ck
     torch.backends.cudnn.deterministic = False
     torch.cuda.empty_cache()
@@ -606,6 +735,10 @@ def main() -> int:
     k5_ref = weighted_gather_sum_dweight_reference(*k5_args)
     k5_err = (weighted_gather_sum_dweight(*k5_args) - k5_ref).abs().max() \
         .item()
+    cull = cull_check(k1_args[0], k1_args[2])
+    emit(phase="cull", tables="train", tiles=k1_args[0].shape[0],
+         k=k1_args[0].shape[2], **cull)
+    check_cull(cull, "train")
     check(k1_err <= 1e-4, f"K1 on train inputs: {k1_err}")
     check(k2_err <= k2_tol, f"K2 on train inputs: {k2_err} > {k2_tol}")
     check(k3_err <= 1e-5 * k3_ref.abs().max().item(),
@@ -619,8 +752,10 @@ def main() -> int:
     feat3, pix3, w3 = k3_args
     (pix4, w4, g4, hw4), (feat5, pix5, g5) = k4_args, k5_args
     lib_bwd_ms = cuda_ms(embedding_bag_backward_fn(feat3, pix3, w3, g4))
-    k1_b, k1_by = k1_bound(*k1_args)
-    k2_b, k2_by = k2_bound(k2_args[0], k2_args[1], k2_args[3])
+    k1_b, k1_by = k1_bound(k1_args[0], k1_args[1], cull)
+    k2_b, k2_by = k2_bound(k2_args[0], k2_args[1], cull)
+    k1_all, _ = k1_bound(k1_args[0], k1_args[1], cull, all_pairs=True)
+    k2_all, _ = k2_bound(k2_args[0], k2_args[1], cull, all_pairs=True)
     k3_b, k3_by = k3_bound(*k3_args)
     k4_b, k4_by = k4_bound(pix4, w4, g4, hw4)
     k5_b, k5_by = k5_bound(feat5, pix5, g5)
@@ -634,9 +769,15 @@ def main() -> int:
              predict_launches=predict_launches["composite_tiles"],
              max_abs_err=k1_err,
              ms=cuda_ms(lambda: composite_tiles(*k1_args)),
+             host_paced_ms=cuda_ms(lambda: composite_tiles(*k1_args),
+                                   queued=False),
+             predict_ms=cuda_ms(lambda: composite_tiles(*k1_predict_args)),
+             predict_host_paced_ms=cuda_ms(
+                 lambda: composite_tiles(*k1_predict_args), queued=False),
              plain_ms=cuda_ms(lambda: composite_tiles_reference(*k1_args),
                               reps=3),
-             bound_ms=k1_b, bound_by=k1_by, library_ms=None,
+             bound_ms=k1_b, bound_by=k1_by, all_pairs_bound_ms=k1_all,
+             library_ms=None,
              shape=dict(tiles=k1_args[0].shape[0], k=k1_args[0].shape[2],
                         c=k1_args[1].shape[1])),
         dict(name="composite_tiles_bwd", route="cuda",
@@ -645,9 +786,12 @@ def main() -> int:
              launches=train_launches["composite_tiles_bwd"],
              max_abs_err=k2_err,
              ms=cuda_ms(lambda: composite_tiles_bwd(*k2_args)),
+             host_paced_ms=cuda_ms(lambda: composite_tiles_bwd(*k2_args),
+                                   queued=False),
              plain_ms=cuda_ms(lambda: composite_tiles_bwd_reference(
                  *k2_args), reps=3),
-             bound_ms=k2_b, bound_by=k2_by, library_ms=None,
+             bound_ms=k2_b, bound_by=k2_by, all_pairs_bound_ms=k2_all,
+             library_ms=None,
              shape=dict(tiles=k2_args[0].shape[0], k=k2_args[0].shape[2],
                         c=k2_args[1].shape[1])),
         dict(name="weighted_gather_sum", route="cuda",
@@ -657,6 +801,8 @@ def main() -> int:
              predict_launches=predict_launches["weighted_gather_sum"],
              max_abs_err=k3_err,
              ms=cuda_ms(lambda: weighted_gather_sum(*k3_args)),
+             host_paced_ms=cuda_ms(lambda: weighted_gather_sum(*k3_args),
+                                   queued=False),
              plain_ms=cuda_ms(lambda: weighted_gather_sum_reference(
                  *k3_args), reps=3),
              bound_ms=k3_b, bound_by=k3_by,
@@ -670,6 +816,8 @@ def main() -> int:
              launches=train_launches["weighted_gather_sum_dfeat"],
              max_abs_err=k4_err,
              ms=cuda_ms(lambda: weighted_gather_sum_dfeat(*k4_args)),
+             host_paced_ms=cuda_ms(
+                 lambda: weighted_gather_sum_dfeat(*k4_args), queued=False),
              plain_ms=cuda_ms(lambda: weighted_gather_sum_dfeat_reference(
                  *k4_args), reps=3),
              bound_ms=k4_b, bound_by=k4_by, library_ms=lib_bwd_ms,
@@ -681,12 +829,18 @@ def main() -> int:
              launches=train_launches["weighted_gather_sum_dweight"],
              max_abs_err=k5_err,
              ms=cuda_ms(lambda: weighted_gather_sum_dweight(*k5_args)),
+             host_paced_ms=cuda_ms(
+                 lambda: weighted_gather_sum_dweight(*k5_args), queued=False),
              plain_ms=cuda_ms(lambda: weighted_gather_sum_dweight_reference(
                  *k5_args), reps=3),
              bound_ms=k5_b, bound_by=k5_by, library_ms=lib_bwd_ms,
              library_covers="K4+K5: one autograd.grad of embedding_bag",
              shape=lift_shape),
     ]
+    if opts.save_compositor_inputs:
+        torch.save({"k1": k1_args, "k2": k2_args,
+                    "k1_predict": k1_predict_args},
+                   opts.save_compositor_inputs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,10 +3,10 @@
 Each source under `csrc/` has a plain C interface (pointers, ints and a
 stream in, a `cudaError_t` out), so it compiles in seconds without
 PyTorch's headers.  It is built for sm_90a into `<repo>/build/kernels/`
-at first use, under a name that carries the hash of the source and the
-flags, so an edited source is never served by a stale library.  Nothing
-is built when the module is imported: the CPU tests import every module
-and have no nvcc.
+at first use, under a name that carries the hash of the source, of every
+header in `csrc/` and of the flags, so an edited source or header is
+never served by a stale library.  Nothing is built when the module is
+imported: the CPU tests import every module and have no nvcc.
 """
 
 from __future__ import annotations
@@ -44,10 +44,12 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library of `csrc/<name>.cu` is built for its current
-    source and flags."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    source, the headers beside it and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

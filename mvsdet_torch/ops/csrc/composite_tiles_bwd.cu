@@ -18,61 +18,81 @@
 // JAX kernel does: only `active` pairs whose unclipped alpha is below 0.99
 // pass dalpha on, and the power terms only where power < 0.  Rows 6-7 of
 // ddata are zero.  Each slot's gradients are sums over the tile's 256
-// pixels; the outputs stay per tile, so no two CTAs write one address.
+// pixels.
 //
-// Design.  One CTA per tile, a thread per pixel, the table staged through
-// shared memory kChunk slots at a time, as in the forward.  The
-// transmittance is never rebuilt by dividing T_final by (1 - alpha) back to
-// front (the CUDA 3DGS rasterizer's way): at K = 2048 T_final underflows.
-// The JAX log-space scheme is kept instead.  Phase A walks the slots front
-// to back and stores each chunk's starting log-transmittance in a scratch
-// buffer (T, K / kChunk, 256) that only the pixel's own thread reads back.
-// Phase B walks the chunks back to front: a short forward pass over the
-// chunk rebuilds each slot's exclusive log-transmittance in registers from
-// the stored start, then a backward pass over the chunk carries the suffix
-// sum S in a register.  Each slot's 6 + C per-pixel gradients are summed by
-// warp shuffles and then over the 8 warps through shared memory, always in
-// the same order, so the result is deterministic.
+// Bound: operations.  An active pair costs ~40 flops and three
+// transcendentals beyond the ~12-flop cull test, plus its share of the
+// per-slot sums over the tile's pixels; the tables are read once.  The
+// walk within a pixel is serial (the suffix S and the log-T carry), so
+// the kernel needs many warps in flight to hide those chains.
 //
-// Bound: operations.  Every (pixel, slot) pair is evaluated twice (phase A
-// and B) at ~12 flops to find whether it is culled, and an active pair
-// costs ~40 more flops and three transcendentals, plus the 6 + C shuffle
-// reductions per slot; the table is read from device memory twice per tile.
+// Design (see composite_tiles.cuh).  One CTA per (tile, segment of 128
+// slots), as in the forward, so at T = 160, K = 2048 there are 2560 CTAs.
+// Pass 1 (composite_tiles_bwd_segment_kernel) is the forward's segment
+// pass; besides the partials (L_s and the local channel sums acc_s) it
+// stores the local log-T at the start of every 32-slot group of kept slots.
+// Pass 2 (composite_tiles_bwd_kernel) derives each segment's start state
+// from the partials in segment order, with U_s = sum_c g_c acc_sc:
+//
+//   start log-T  = sum_{s'<s} L_s'
+//   start suffix = sum_{s'>s} exp(sum_{s''<s'} L_s'') U_s' + g_T T_final
+//
+// and walks its own segment's groups back to front carrying S.  There is no
+// serial walk over all K slots, and the transmittance is never rebuilt by
+// dividing T_final by (1 - alpha) (the CUDA 3DGS rasterizer's way: at K =
+// 2048 T_final underflows).  It stays in log space: a group's exclusive
+// log-T values are its end value (the next group's stored start, or L_s)
+// less the log1p(-alpha) of the listed slots after them.  The anchor every
+// 32 slots bounds the rounding of that difference to ~32 float steps of
+// |log-T|, so T is off by at most ~32 eps |log T| T < 1e-6 absolute.  Each
+// pair is evaluated once (one exp(power), one log1p, one exp of log-T), in
+// a loop that is not unrolled (unrolled over a 32-slot group, with the
+// group's log-T in register arrays, the walk took 112 registers and ran
+// three times slower on an H100 at the training step's tables).  A warp
+// reduces a slot's 6 + C gradients only if one of its lanes is active
+// there, in one transposed butterfly that leaves one sum per lane (16
+// shuffles for up to 16 values, not 5 per value); the 8 warps' sums are
+// added in shared memory in warp order.  Each CTA owns its segment's
+// slots, so every output element is written once, by one CTA, without
+// atomics, and two launches give the same bits.
 
-#include <cuda_runtime.h>
+#include "composite_tiles.cuh"
 
 namespace {
 
-constexpr int kTile = 16;
-constexpr int kPixels = kTile * kTile;  // one thread per pixel
-constexpr int kWarps = kPixels / 32;
-constexpr int kChunk = 32;              // slots per shared-memory step
-constexpr int kDataRows = 8;
-constexpr float kAlphaMax = 0.99f;
-constexpr float kAlphaMin = 1.f / 255.f;
+using namespace ct;
 
-__device__ __forceinline__ float warp_sum(float x) {
+// Transposed butterfly over a warp: x holds M values per lane; after it,
+// lane l holds in x[0] the warp's sum of value l >> (5 - log2 M) (lanes
+// that differ only in their low 5 - log2 M bits hold the same sum).
+template <int M, int OFF>
+__device__ __forceinline__ void reduce_scatter(float* x, int lane) {
+  if constexpr (OFF > 0) {
+    if constexpr (M > 1) {
+      constexpr int kHalf = M / 2;
+      const bool upper = (lane & OFF) != 0;
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
+      for (int i = 0; i < kHalf; ++i) {
+        const float send = upper ? x[i] : x[i + kHalf];
+        const float keep = upper ? x[i + kHalf] : x[i];
+        x[i] = __fadd_rn(keep, __shfl_xor_sync(kFull, send, OFF));
+      }
+      reduce_scatter<kHalf, OFF / 2>(x, lane);
+    } else {
+      x[0] = __fadd_rn(x[0], __shfl_xor_sync(kFull, x[0], OFF));
+      reduce_scatter<1, OFF / 2>(x, lane);
+    }
+  }
 }
 
-// Stage slots [base, base + kChunk) of the tile's table into shared memory;
-// slots past k get opacity 0, which culls them.
 template <int C>
-__device__ __forceinline__ void stage(const float* d, const float* v, int k,
-                                      int base, int p,
-                                      float (&s_data)[6][kChunk],
-                                      float (&s_vals)[C][kChunk]) {
-  if (p < kChunk) {
-    const int j = base + p;
-    const bool in = j < k;
-#pragma unroll
-    for (int r = 0; r < 6; ++r) s_data[r][p] = in ? d[r * k + j] : 0.f;
-#pragma unroll
-    for (int c = 0; c < C; ++c) s_vals[c][p] = in ? v[c * k + j] : 0.f;
-  }
+__global__ void __launch_bounds__(kPixels)
+composite_tiles_bwd_segment_kernel(const float* __restrict__ data,
+                                   const float* __restrict__ vals,
+                                   float* __restrict__ partials,
+                                   float* __restrict__ starts, int k,
+                                   int tiles_x) {
+  segment_pass<C>(data, vals, partials, starts, k, tiles_x);
 }
 
 template <int C>
@@ -80,102 +100,87 @@ __global__ void __launch_bounds__(kPixels)
 composite_tiles_bwd_kernel(const float* __restrict__ data,
                            const float* __restrict__ vals,
                            const float* __restrict__ g,
+                           const float* __restrict__ partials,
+                           const float* __restrict__ starts,
                            float* __restrict__ ddata,
-                           float* __restrict__ dvals,
-                           float* __restrict__ log_t_start,
-                           int k, int tiles_x) {
-  __shared__ float s_data[6][kChunk];
-  __shared__ float s_vals[C][kChunk];
-  __shared__ float s_part[kWarps][6 + C][kChunk];
+                           float* __restrict__ dvals, int k, int tiles_x) {
+  constexpr int kVals = 6 + C;                 // gradients per slot
+  constexpr int kLog = kVals <= 8 ? 3 : 4;
+  constexpr int kPad = 1 << kLog;
+  __shared__ Segment<C> s;
+  __shared__ float s_part[kWarps][kVals][kGroup];
+  __shared__ unsigned s_mask[kWarps];
 
-  const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int warp = p / 32;
-  const int lane = p % 32;
-  const int n_chunks = (k + kChunk - 1) / kChunk;
-  const float px = static_cast<float>((t % tiles_x) * kTile + p % kTile);
-  const float py = static_cast<float>((t / tiles_x) * kTile + p / kTile);
-  const float* d = data + static_cast<long long>(t) * kDataRows * k;
-  const float* v = vals + static_cast<long long>(t) * C * k;
+  const int t = blockIdx.x, seg = blockIdx.y, n_seg = gridDim.y;
+  const int p = threadIdx.x, warp = p / 32, lane = p % 32;
+  const int base = seg * kSeg;
   float* dd = ddata + static_cast<long long>(t) * kDataRows * k;
   float* dv = dvals + static_cast<long long>(t) * C * k;
-  float* lts = log_t_start + static_cast<long long>(t) * n_chunks * kPixels;
+  const int n = stage_segment<C>(
+      data + static_cast<long long>(t) * kDataRows * k,
+      vals + static_cast<long long>(t) * C * k, k, base, min(kSeg, k - base),
+      p, s, dd, dv);
+  const Pixel px = pixel_of(t, tiles_x, p);
 
-  // -- phase A: each chunk's starting log-transmittance -------------------
-  float log_t = 0.f;
-  for (int ci = 0; ci < n_chunks; ++ci) {
-    __syncthreads();
-    stage<C>(d, v, k, ci * kChunk, p, s_data, s_vals);
-    __syncthreads();
-    lts[ci * kPixels + p] = log_t;
-#pragma unroll 4
-    for (int j = 0; j < kChunk; ++j) {
-      const float dx = px - s_data[0][j];
-      const float dy = py - s_data[1][j];
-      const float power = -0.5f * (s_data[2][j] * dx * dx
-                                   + s_data[4][j] * dy * dy)
-                          - s_data[3][j] * dx * dy;
-      if (!(power <= 0.f)) continue;
-      const float alpha = fminf(s_data[5][j] * expf(power), kAlphaMax);
-      if (!(alpha >= kAlphaMin)) continue;
-      log_t += log1pf(-alpha);
-    }
-  }
-  const float t_final = expf(log_t);
-
-  const float* gp = g + static_cast<long long>(t) * (C + 1) * kPixels + p;
+  // the segment's start state, from every segment's partials in order
+  const float* gp = g + static_cast<long long>(t) * (C + 1) * kPixels + px.q;
   float g_out[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) g_out[c] = gp[c * kPixels];
-  const float base = gp[C * kPixels] * t_final;
-
-  // -- phase B: chunks back to front, suffix sum S carried ----------------
-  float s_suffix = 0.f;
-  for (int ci = n_chunks - 1; ci >= 0; --ci) {
-    const int base_slot = ci * kChunk;
-    __syncthreads();  // the previous chunk's s_part and table are consumed
-    stage<C>(d, v, k, base_slot, p, s_data, s_vals);
-    __syncthreads();
-
-    // exclusive log-transmittance of every slot of the chunk
-    float lte[kChunk];
-    float cur = lts[ci * kPixels + p];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      lte[j] = cur;
-      const float dx = px - s_data[0][j];
-      const float dy = py - s_data[1][j];
-      const float power = -0.5f * (s_data[2][j] * dx * dx
-                                   + s_data[4][j] * dy * dy)
-                          - s_data[3][j] * dx * dy;
-      const float alpha_cl = fminf(s_data[5][j] * expf(fminf(power, 0.f)),
-                                   kAlphaMax);
-      if (power <= 0.f && alpha_cl >= kAlphaMin) cur += log1pf(-alpha_cl);
+  const float* pp = partials + static_cast<long long>(t) * n_seg * (C + 1)
+                    * kPixels + px.q;
+  float pre = 0.f, log_t = 0.f, s_suffix = 0.f, seg_log_t = 0.f;
+  for (int s2 = 0; s2 < n_seg; ++s2, pp += (C + 1) * kPixels) {
+    if (s2 == seg) {
+      pre = log_t;
+      seg_log_t = pp[C * kPixels];
     }
-
+    if (s2 > seg) {
+      float u = 0.f;
 #pragma unroll
-    for (int j = kChunk - 1; j >= 0; --j) {
-      const float mx = s_data[0][j], my = s_data[1][j];
-      const float ca = s_data[2][j], cb = s_data[3][j], cc = s_data[4][j];
-      const float dx = px - mx;
-      const float dy = py - my;
-      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
+      for (int c = 0; c < C; ++c) u += g_out[c] * pp[c * kPixels];
+      s_suffix += expf(log_t) * u;
+    }
+    log_t += pp[C * kPixels];
+  }
+  const float tail = gp[C * kPixels] * expf(log_t);   // g_T T_final
+  const float* st = starts + (static_cast<long long>(t) * n_seg + seg)
+                    * kGroups * kPixels + px.q;
+
+  for (int g0 = n > 0 ? (n - 1) / kGroup * kGroup : -1; g0 >= 0;
+       g0 -= kGroup) {
+    unsigned mask = group_mask(s, n, g0, px);
+    // the local log-T after the group: where the next group starts, or
+    // the segment's sum; each listed active slot's log1p(-alpha) is taken
+    // off it back to front to give that slot's exclusive log-T
+    float cur = g0 + kGroup < n ? st[(g0 / kGroup + 1) * kPixels] : seg_log_t;
+    for (unsigned left = mask; left != 0u;) {
+      const int i = 31 - __clz(left);
+      left &= ~(1u << i);
+      const int j = g0 + i;
+      float dx, dy;
+      const float power = power_at(s, j, px, dx, dy);
       const float exp_p = expf(fminf(power, 0.f));
-      const float alpha_un = s_data[5][j] * exp_p;
+      const float alpha_un = s.d[5][j] * exp_p;
       const float alpha_cl = fminf(alpha_un, kAlphaMax);
       const bool active = power <= 0.f && alpha_cl >= kAlphaMin;
-
-      float grad[6 + C];
+      if (!__any_sync(kFull, active)) {
+        mask &= ~(1u << i);
+        continue;
+      }
+      float grad[kPad];
 #pragma unroll
-      for (int r = 0; r < 6 + C; ++r) grad[r] = 0.f;
+      for (int r = 0; r < kPad; ++r) grad[r] = 0.f;
       if (active) {
-        const float alpha = alpha_cl;
-        const float t_excl = expf(lte[j]);
-        const float w = t_excl * alpha;
+        cur -= log1pf(-alpha_cl);            // now the exclusive log-T
+        const float ca = s.d[2][j], cb = s.d[3][j], cc = s.d[4][j];
+        const float t_excl = expf(pre + cur);
+        const float w = t_excl * alpha_cl;
         float u = 0.f;
 #pragma unroll
-        for (int c = 0; c < C; ++c) u += g_out[c] * s_vals[c][j];
-        const float dalpha = t_excl * u - (s_suffix + base) / (1.f - alpha);
+        for (int c = 0; c < C; ++c) u += g_out[c] * s.v[c][j];
+        const float dalpha = t_excl * u - (s_suffix + tail)
+                             / (1.f - alpha_cl);
         s_suffix += w * u;
         if (alpha_un < kAlphaMax) {
           const float d_power = power < 0.f ? dalpha * alpha_un : 0.f;
@@ -189,30 +194,31 @@ composite_tiles_bwd_kernel(const float* __restrict__ data,
 #pragma unroll
         for (int c = 0; c < C; ++c) grad[6 + c] = g_out[c] * w;
       }
-#pragma unroll
-      for (int r = 0; r < 6 + C; ++r) {
-        const float sum = warp_sum(grad[r]);
-        if (lane == 0) s_part[warp][r][j] = sum;
-      }
+      reduce_scatter<kPad, 16>(grad, lane);
+      const int r = lane >> (5 - kLog);
+      if ((lane & ((1 << (5 - kLog)) - 1)) == 0 && r < kVals)
+        s_part[warp][r][i] = grad[0];
     }
+    if (lane == 0) s_mask[warp] = mask;
     __syncthreads();
 
-    // the 8 warps' partial sums, in warp order, to the tile's outputs
-    for (int i = p; i < (kDataRows + C) * kChunk; i += kPixels) {
-      const int r = i / kChunk;
-      const int j = i % kChunk;
-      const int slot = base_slot + j;
-      if (slot >= k) continue;
-      if (r >= 6 + C) {                       // rows 6-7 of ddata
+    // the 8 warps' sums, in warp order, to the group's slots
+    for (int e = p; e < (kDataRows + C) * kGroup; e += kPixels) {
+      const int r = e / kGroup, i = e % kGroup;
+      if (g0 + i >= n) continue;
+      const int slot = base + s.slot[g0 + i];
+      if (r >= kVals) {                       // rows 6-7 of ddata
         dd[(r - C) * k + slot] = 0.f;
         continue;
       }
       float sum = 0.f;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += s_part[w][r][j];
+      for (int w = 0; w < kWarps; ++w)
+        if (s_mask[w] >> i & 1u) sum += s_part[w][r][i];
       if (r < 6) dd[r * k + slot] = sum;
       else dv[(r - 6) * k + slot] = sum;
     }
+    __syncthreads();
   }
 }
 
@@ -220,19 +226,29 @@ template <int C>
 cudaError_t launch(const float* data, const float* vals, const float* g,
                    float* ddata, float* dvals, float* scratch, int n_tiles,
                    int k, int tiles_x, cudaStream_t stream) {
-  composite_tiles_bwd_kernel<C><<<n_tiles, kPixels, 0, stream>>>(
-      data, vals, g, ddata, dvals, scratch, k, tiles_x);
+  const dim3 grid(n_tiles, segments(k));
+  float* partials = scratch;
+  float* starts = scratch + static_cast<long long>(n_tiles) * segments(k)
+                  * (C + 1) * kPixels;
+  composite_tiles_bwd_segment_kernel<C><<<grid, kPixels, 0, stream>>>(
+      data, vals, partials, starts, k, tiles_x);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  composite_tiles_bwd_kernel<C><<<grid, kPixels, 0, stream>>>(
+      data, vals, g, partials, starts, ddata, dvals, k, tiles_x);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Floats of scratch the caller allocates: n_tiles * this * 256.
-extern "C" int composite_tiles_bwd_chunks(int k) {
-  return (k + kChunk - 1) / kChunk;
+// Floats of scratch the caller allocates for composite_tiles_bwd: the
+// partials (T, S, C + 1, 256), then the group starts (T, S, 4, 256).
+extern "C" long long composite_tiles_bwd_scratch(int n_tiles, int k, int c) {
+  return static_cast<long long>(n_tiles) * segments(k)
+         * (c + 1 + kGroups) * kPixels;
 }
 
-// Returns the launch's cudaError_t (0 on success); C must be 1..4.
+// Returns the launches' cudaError_t (0 on success); C must be 1..4.
 extern "C" int composite_tiles_bwd(const float* data, const float* vals,
                                    const float* g, float* ddata, float* dvals,
                                    float* scratch, int n_tiles, int k, int c,

@@ -10,8 +10,8 @@ with `torch.profiler` and prints JSON lines: the card (as nvidia-smi names
 it, with its power limit), the traced step's host latency, the device's
 busy time (the union of its kernel intervals) and idle share over that
 latency, its device-to-host copies, the peak memory, the time of the
-port's five kernels, and the kernels that took the most device time,
-summed by name.  TF32 is off, as in the JAX package's float32 step.
+port's five kernels (K1's and K2's also by pass), and the kernels that
+took the most device time, summed by name.  TF32 is off, as in the JAX package's float32 step.
 """
 
 from __future__ import annotations
@@ -29,19 +29,24 @@ from mvsdet_torch.data.synthetic import make_synthetic_scene
 from mvsdet_torch.tools.profile_predict import TOP, _busy_us
 from mvsdet_torch.training.loop import create_train_state, train_step
 
-# the port's kernels by the names nvcc gives their entry points
-PORT_KERNELS = {"composite_tiles_kernel": "K1 composite_tiles",
-                "composite_tiles_bwd_kernel": "K2 composite_tiles_bwd",
-                "weighted_gather_sum_kernel": "K3 weighted_gather_sum",
-                "dfeat_kernel": "K4 weighted_gather_sum_dfeat",
-                "dweight_kernel": "K5 weighted_gather_sum_dweight"}
+# the port's kernels by the names nvcc gives their entry points: (kernel,
+# pass); K1 and K2 run two device kernels each
+PORT_KERNELS = {
+    "composite_tiles_segment_kernel": ("K1 composite_tiles", "segment pass"),
+    "composite_tiles_combine_kernel": ("K1 composite_tiles", "combine"),
+    "composite_tiles_bwd_segment_kernel": ("K2 composite_tiles_bwd",
+                                           "segment pass"),
+    "composite_tiles_bwd_kernel": ("K2 composite_tiles_bwd", "backward walk"),
+    "weighted_gather_sum_kernel": ("K3 weighted_gather_sum", None),
+    "dfeat_kernel": ("K4 weighted_gather_sum_dfeat", None),
+    "dweight_kernel": ("K5 weighted_gather_sum_dweight", None)}
 
 
 def _port_kernel(name: str):
     for key, label in PORT_KERNELS.items():
         if key in name:
             return label
-    return None
+    return None, None
 
 
 def main() -> None:
@@ -77,14 +82,18 @@ def main() -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = _busy_us([(e.time_range.start, e.time_range.end)
                         for e in kernels]) / 1e3
-    by_name, port = {}, {}
+    by_name, port, passes = {}, {}, {}
     for e in kernels:
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
-        label = _port_kernel(e.name)
+        label, part = _port_kernel(e.name)
         if label:
+            e_ms = e.time_range.elapsed_us() / 1e3
             ms, n = port.get(label, (0.0, 0))
-            port[label] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+            port[label] = (ms + e_ms, n + 1)
+            if part:
+                ms, n = passes.get((label, part), (0.0, 0))
+                passes[label, part] = (ms + e_ms, n + 1)
     kernel_ms = sum(ms for ms, _ in by_name.values())
     host_reads = sum(n for name, (_, n) in by_name.items()
                      if name.startswith("Memcpy DtoH"))
@@ -98,8 +107,11 @@ def main() -> None:
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}),
         flush=True)
     print(json.dumps({"port_kernels": {
-        label: {"ms": ms, "launches": n} for label, (ms, n) in
-        sorted(port.items())}}), flush=True)
+        label: {"ms": ms, "launches": n, "passes": {
+            part: {"ms": p_ms, "launches": p_n}
+            for (lab, part), (p_ms, p_n) in sorted(passes.items())
+            if lab == label}}
+        for label, (ms, n) in sorted(port.items())}}), flush=True)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
     for name, (ms, n) in top:
         print(json.dumps({"kernel": name[:120], "ms": ms, "launches": n,

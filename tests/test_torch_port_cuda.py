@@ -23,10 +23,11 @@ from mvsdet_torch.ops.lift_kernel import (
     weighted_gather_sum, weighted_gather_sum_dfeat,
     weighted_gather_sum_dfeat_reference, weighted_gather_sum_dweight,
     weighted_gather_sum_dweight_reference, weighted_gather_sum_reference)
-from mvsdet_torch.ops.splat_kernel import (composite_tiles,
-                                           composite_tiles_bwd,
-                                           composite_tiles_bwd_reference,
-                                           composite_tiles_reference)
+from mvsdet_torch.ops.splat_kernel import (
+    ALPHA_MIN, KERNEL_CONSTANTS, _bwd_library, _fwd_library, _pairs,
+    _tile_pixel_coords, composite_tiles, composite_tiles_bwd,
+    composite_tiles_bwd_reference, composite_tiles_reference, cull_boxes,
+    cull_boxes_reference, kernel_constants)
 from mvsdet_torch.training.loop import create_train_state, make_train_step
 
 pytestmark = pytest.mark.cuda
@@ -41,8 +42,13 @@ def cuda():
     return torch.device("cuda")
 
 
-def tables(n_tiles, k, c, tiles_x, seed=0):
-    """Tile tables in the compositor's layout, 30% of slots empty."""
+def tables(n_tiles, k, c, tiles_x, seed=0, kind="random"):
+    """Tile tables in the compositor's layout, 30% of slots empty.
+
+    kind "culled_tile": every slot of tile 0 empty and every slot of tile 1
+    below the opacity cutoff; "non_pd": a quarter of the slots with a conic
+    that is not positive definite (a < 0, or b^2 > a c) and a few nearly
+    singular ones."""
     rng = np.random.RandomState(seed)
     data = np.zeros((n_tiles, 8, k), np.float32)
     data[:, 0] = rng.uniform(-8, tiles_x * 16 + 8, (n_tiles, k))
@@ -52,17 +58,39 @@ def tables(n_tiles, k, c, tiles_x, seed=0):
     data[:, 4] = rng.uniform(0.02, 0.5, (n_tiles, k))
     data[:, 5] = rng.uniform(0, 0.95, (n_tiles, k)) * (rng.rand(n_tiles, k)
                                                         >= 0.3)
+    if kind == "culled_tile":
+        data[0, 5] = 0.0
+        data[1, 5] = rng.uniform(0, 1 / 256, k)
+    elif kind == "non_pd":
+        pick = rng.rand(n_tiles, k)
+        data[:, 2] = np.where(pick < 0.1, -data[:, 2], data[:, 2])
+        root = np.sqrt(np.abs(data[:, 2] * data[:, 4]))
+        data[:, 3] = np.where((pick >= 0.1) & (pick < 0.25), 1.5 * root,
+                              data[:, 3])
+        data[:, 3] = np.where((pick >= 0.25) & (pick < 0.3), 0.9999 * root,
+                              data[:, 3])
     vals = rng.rand(n_tiles, c, k).astype(np.float32)
     return torch.from_numpy(data), torch.from_numpy(vals)
 
 
-@pytest.mark.parametrize("n_tiles,k,c,tiles_x", [
-    (24, 512, 3, 4),            # two stacked 4x3-tile views
-    (10, 300, 1, 5),            # K not a multiple of the staged chunk
-    (6, 2048, 4, 3),            # the predict capacity, four channels
-])
-def test_compositor_matches_plain_version(cuda, n_tiles, k, c, tiles_x):
-    data, vals = (t.to(cuda) for t in tables(n_tiles, k, c, tiles_x))
+# the kernels run one CTA per 128-slot segment of a tile
+COMPOSITOR_CASES = [
+    (24, 512, 3, 4, "random"),        # two stacked 4x3-tile views
+    (10, 300, 1, 5, "random"),        # a ragged last segment of 44 slots
+    (6, 2048, 4, 3, "random"),        # the step's capacity, four channels
+    (4, 100, 2, 2, "random"),         # K below one segment
+    (6, 600, 3, 3, "culled_tile"),    # tiles whose slots are all culled
+    (6, 512, 2, 2, "non_pd"),         # conics that are not positive definite
+    (4, 256, 1, 2, "non_pd"),         # two whole segments, one channel
+    (4, 777, 4, 4, "random"),         # four channels, ragged
+]
+
+
+@pytest.mark.parametrize("n_tiles,k,c,tiles_x,kind", COMPOSITOR_CASES)
+def test_compositor_matches_plain_version(cuda, n_tiles, k, c, tiles_x,
+                                          kind):
+    data, vals = (t.to(cuda) for t in tables(n_tiles, k, c, tiles_x,
+                                             kind=kind))
     launches = composite_tiles.launches
     got = composite_tiles(data, vals, tiles_x)
     torch.cuda.synchronize()
@@ -87,18 +115,22 @@ def test_gather_is_bit_equal_to_plain_version(cuda, n, hw, c, v):
     assert torch.equal(got, weighted_gather_sum_reference(*args))
 
 
-@pytest.mark.parametrize("n_tiles,k,c,tiles_x", [
-    (24, 512, 3, 4),            # two stacked 4x3-tile views
-    (10, 300, 1, 5),            # K not a multiple of the staged chunk
-    (6, 2048, 4, 3),            # the training capacity, four channels
-])
-def test_compositor_backward_matches_plain_version(cuda, n_tiles, k, c,
-                                                   tiles_x):
-    data, vals = tables(n_tiles, k, c, tiles_x, seed=k)
-    data[:, 5, :k // 10] = 1.3                          # clipped at 0.99
+def _backward_inputs(n_tiles, k, c, tiles_x, kind, device):
+    data, vals = tables(n_tiles, k, c, tiles_x, seed=k, kind=kind)
+    if kind == "culled_tile":              # clipped, but culled tiles stay so
+        head = data[:, 5, :k // 10]
+        data[:, 5, :k // 10] = torch.where(head >= 1 / 255, 1.3, head)
+    else:
+        data[:, 5, :k // 10] = 1.3                      # clipped at 0.99
     g = torch.from_numpy(np.random.RandomState(c).randn(
         n_tiles, c + 1, 256).astype(np.float32))       # g_T != 0
-    data, vals, g = (t.to(cuda) for t in (data, vals, g))
+    return tuple(t.to(device) for t in (data, vals, g))
+
+
+@pytest.mark.parametrize("n_tiles,k,c,tiles_x,kind", COMPOSITOR_CASES)
+def test_compositor_backward_matches_plain_version(cuda, n_tiles, k, c,
+                                                   tiles_x, kind):
+    data, vals, g = _backward_inputs(n_tiles, k, c, tiles_x, kind, cuda)
     launches = composite_tiles_bwd.launches
     got = composite_tiles_bwd(data, vals, g, tiles_x)
     torch.cuda.synchronize()
@@ -107,6 +139,126 @@ def test_compositor_backward_matches_plain_version(cuda, n_tiles, k, c,
                                                        tiles_x)):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
     assert torch.all(got[0][:, 6:] == 0)
+    if kind == "culled_tile":
+        assert torch.all(got[0][:2] == 0) and torch.all(got[1][:2] == 0)
+
+
+@pytest.mark.parametrize("n_tiles,k,c,tiles_x,kind", [
+    (24, 512, 3, 4, "random"), (10, 300, 1, 5, "non_pd"),
+    (6, 2048, 4, 3, "random")])
+def test_compositor_launches_are_bit_equal(cuda, n_tiles, k, c, tiles_x,
+                                           kind):
+    """No atomics and a fixed order of every sum: two launches on the same
+    inputs give the same bits, forward and backward."""
+    data, vals, g = _backward_inputs(n_tiles, k, c, tiles_x, kind, cuda)
+    assert torch.equal(composite_tiles(data, vals, tiles_x),
+                       composite_tiles(data, vals, tiles_x))
+    first = composite_tiles_bwd(data, vals, g, tiles_x)
+    second = composite_tiles_bwd(data, vals, g, tiles_x)
+    assert torch.equal(first[0], second[0])
+    assert torch.equal(first[1], second[1])
+
+
+def stress_tables(n_tiles, k, tiles_x, seed):
+    """Tables that probe the cull box's edge: opacities log-uniform from
+    just below 1/255 to clipped, conic scales over five decades, means
+    near integer pixel positions, correlations up to |b| = 0.999 sqrt(ac),
+    plus empty slots, conics that are not positive definite and nearly
+    singular ones."""
+    rng = np.random.RandomState(seed)
+    shape = (n_tiles, k)
+    data = np.zeros((n_tiles, 8, k), np.float32)
+    data[:, 0] = np.round(rng.uniform(-20, tiles_x * 16 + 20, shape)) \
+        + rng.choice([0.0, 0.5, 1e-3, -1e-3], shape)
+    data[:, 1] = np.round(rng.uniform(-20, n_tiles // tiles_x * 16 + 20,
+                                      shape)) \
+        + rng.choice([0.0, 0.5, 1e-3, -1e-3], shape)
+    a = 10.0 ** rng.uniform(-4, 1, shape)
+    cc = 10.0 ** rng.uniform(-4, 1, shape)
+    rho = rng.choice([0.0, 0.5, -0.9, 0.999, -0.999], shape) \
+        * rng.uniform(0, 1, shape)
+    pick = rng.rand(*shape)
+    rho = np.where(pick < 0.05, 1.2, rho)                    # det < 0
+    a = np.where((pick >= 0.05) & (pick < 0.1), -a, a)       # a < 0
+    rho = np.where((pick >= 0.1) & (pick < 0.12), 0.99999, rho)
+    data[:, 2] = a
+    data[:, 3] = rho * np.sqrt(np.abs(a * cc))
+    data[:, 4] = cc
+    op = 10.0 ** rng.uniform(np.log10(ALPHA_MIN) - 0.01, 0.2, shape)
+    op = np.where(rng.rand(*shape) < 0.1, ALPHA_MIN * (1 + 1e-6), op)
+    # a fifth of the slots sit on the box's edge: an axis-aligned splat at
+    # an integer mean whose alpha at n pixels along x or y is 1/255 to
+    # within a few float steps, so the exact ellipse passes through pixels
+    edge = rng.rand(*shape) < 0.2
+    n = rng.randint(1, 12, shape).astype(np.float64)
+    along_x = rng.rand(*shape) < 0.5
+    curv = np.where(along_x, np.abs(a), cc)
+    op = np.where(edge, np.float32(ALPHA_MIN) * np.exp(0.5 * curv * n * n)
+                  * (1 + rng.choice([-1e-6, 0.0, 1e-7, 1e-6], shape)), op)
+    data[:, 0] = np.where(edge, np.round(data[:, 0]), data[:, 0])
+    data[:, 1] = np.where(edge, np.round(data[:, 1]), data[:, 1])
+    data[:, 2] = np.where(edge, np.abs(a), data[:, 2])
+    data[:, 3] = np.where(edge, 0.0, data[:, 3])
+    data[:, 5] = np.minimum(op, 2.0) * (rng.rand(*shape) >= 0.2)
+    return data
+
+
+def pairs_outside_box(data, tiles_x):
+    """Active pairs of the plain compositor outside the cull of `data`'s
+    device (the kernels' own on the card, `cull_boxes_reference` on the
+    CPU), the active pairs, and the share of pairs inside a kept box."""
+    keep, box = cull_boxes(data)
+    active = _pairs(data, tiles_x)[5]                        # (T, P, K)
+    px, py = _tile_pixel_coords(data.shape[0], tiles_x, data.device)
+    x, y = px[..., None], py[..., None]
+    b = box[:, :, None, :]
+    inside = keep[:, None, :] & (x >= b[:, 0]) & (x <= b[:, 1]) \
+        & (y >= b[:, 2]) & (y <= b[:, 3])
+    return (int((active & ~inside).sum()), int(active.sum()),
+            float(inside.float().mean()))
+
+
+def test_kernels_carry_the_plain_versions_constants(cuda):
+    """The segment size and the cull's slack that the plain versions copy
+    are the ones each compositor library was built with."""
+    for lib in (_fwd_library(), _bwd_library()):
+        assert kernel_constants(lib) == KERNEL_CONSTANTS
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_kernel_cull_boxes_hold_every_active_pair(cuda, seed):
+    """The kernels' own boxes on the box-edge tables: no active pair
+    outside, and the boxes of `cull_boxes_reference` to float rounding."""
+    data = torch.from_numpy(stress_tables(12, 512, 4, seed)).to(cuda)
+    outside, active, in_box = pairs_outside_box(data, 4)
+    assert outside == 0 and active > 1000 and in_box < 0.5
+    keep, box = cull_boxes(data)
+    want_keep, want_box = cull_boxes_reference(data)
+    assert torch.equal(keep, want_keep)
+    k = keep[:, None].expand_as(box)
+    torch.testing.assert_close(box[k], want_box[k], rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_compositor_on_box_edge_tables(cuda, seed):
+    """K1 and K2 against their plain versions on the box-edge tables.  A
+    skipped active pair (alpha >= 1/255) would move a pixel's final
+    transmittance by 1/255 of itself or more, so T_final is held to 1e-4
+    relative (every pixel's T_final is far above underflow here)."""
+    n_tiles, k, c, tiles_x = 12, 512, 3, 4
+    data = torch.from_numpy(stress_tables(n_tiles, k, tiles_x, seed))
+    rng = np.random.RandomState(seed)
+    vals = torch.from_numpy(rng.rand(n_tiles, c, k).astype(np.float32))
+    g = torch.from_numpy(rng.randn(n_tiles, c + 1, 256).astype(np.float32))
+    data, vals, g = (t.to(cuda) for t in (data, vals, g))
+    got = composite_tiles(data, vals, tiles_x)
+    want = composite_tiles_reference(data, vals, tiles_x)
+    assert want[:, c].min() > 1e-20
+    assert ((got[:, c] - want[:, c]).abs() / want[:, c]).max() <= 1e-4
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    for a, b in zip(composite_tiles_bwd(data, vals, g, tiles_x),
+                    composite_tiles_bwd_reference(data, vals, g, tiles_x)):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
 
 
 @pytest.mark.parametrize("n,hw,c,v", [(5, 40, 264, 70), (3, 12, 8, 9)])
