@@ -8,9 +8,10 @@ Phases, each printed as one JSON line:
 
   device   the card's name and power limit (as nvidia-smi prints them, on
            a line of their own), torch and CUDA versions
-  build    compile the five kernels from the four sources in
-           `mvsdet_torch/ops/csrc` (and the header the compositor's two
-           share) for sm_90a, one nvcc per source, all started together
+  build    compile the five kernels and the lift backward's row index
+           from the four sources in `mvsdet_torch/ops/csrc` (and the
+           header the compositor's two share) for sm_90a, one nvcc per
+           source, all started together
   K1       the tile compositor against its plain version on random tables
            at the predict (T=80) and training (T=160) shapes, K=2048, C=3,
            30% empty slots: max abs error <= 1e-4, and a second launch
@@ -24,10 +25,14 @@ Phases, each printed as one JSON line:
   K3       the voxel-lift gather against its plain version and against
            F.embedding_bag at N=80, HW=4800, C=256, V=25600: max error
            <= 1e-5 of max |out|
-  K4, K5   the gather's d-feat and d-weight against their plain versions
-           at the training shape N=40, HW=4800, C=256, V=25600 with 10% of
-           the weights nonzero: max error <= 1e-5 of max |plain| (d-feat
-           adds with atomics, so its last bits vary from run to run)
+  K4_K5    the gather's backward at the training shape N=40, HW=4800,
+           C=256, V=25600 with 10% of the weights nonzero, pix uniform and
+           clipped-heavy (55% of the pairs on 1% of the rows): the pairs'
+           row index (`lift_rows`) equal to `lift_rows_reference`; d-feat
+           (K4) and d-weight (K5) within 1e-5 of max |plain|, K4 bit-equal
+           to its plain version in its own order and to a second launch;
+           the feature rows K5 loads, counted on the card, at least the
+           distinct rows the pairs select and at most one per pair
   predict  `scannet_config()` at full width with random weights from a
            seeded generator, three synthetic scenes of 80 source views
            (240x320) and one target (120x160) through `make_predict_fn`,
@@ -40,8 +45,9 @@ Phases, each printed as one JSON line:
   train    `scannet_config()` with seeded random weights, one synthetic
            scene of 40 source views (240x320) and 2 targets (120x160),
            3 steps through `fit`, launch counts set to 0 just before and
-           read just after (each of K1-K5 once per step); each step's loss
-           terms and latency, the steady step time and the peak memory;
+           read just after (each of K1-K5 and the index once per step);
+           each step's loss terms and latency, the steady step time and
+           the peak memory;
            losses finite, the trained parameters moved, stem and layer1
            did not
   train_vs_plain
@@ -55,7 +61,8 @@ Phases, each printed as one JSON line:
            within 1e-3 px of its boxes, no active pair outside its slot's
            box; and the work the cull leaves (pairs in a box, listed
            (warp patch, slot) pairs, per-CTA load)
-  kernels  every kernel with its launches in the train run (and, for K1
+  kernels  every kernel (K1-K5 and the lift backward's row index,
+           `lift_rows`) with its launches in the train run (and, for K1
            and K3, in the predict run), its error, its time queued behind
            a device wait (`ms`) and host-paced as before the wait was added
            (`host_paced_ms`), its plain version's time, its bound and the
@@ -63,12 +70,17 @@ Phases, each printed as one JSON line:
            inputs the train step gave it; K1's time on the predict's
            tables; for K1 and K2 also the bound that charges the cull test
            to every pair (`all_pairs_bound_ms`, the count before the
-           kernels culled by box)
+           kernels culled by box); for K4 and K5 (each timed with its own
+           index build, as a wrapper called alone builds it) the index
+           alone (`index_ms`), one backward of the lift's autograd
+           Function (`backward_ms`: the index once, K4, K5) and the
+           feature rows K5 loads (`feature_row_loads`, counted on the card
+           by the kernel itself)
 
-    python3 chip_smoke.py --save-compositor-inputs PATH
+    python3 chip_smoke.py --save-kernel-inputs PATH
 
-also saves the inputs the step and the predict gave K1 and K2, on which
-`mvsdet_torch/tools/time_compositor.py` times the compositor of any
+also saves the inputs the step and the predict gave K1, K2, K4 and K5, on
+which `mvsdet_torch/tools/time_kernels.py` times those kernels of any
 checkout with this script's `cuda_ms`.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises,
@@ -101,6 +113,9 @@ TRAIN_STEPS = 3
 # ~5 ms of device time at the H100's 1.98 GHz boost clock: more than the
 # host takes to enqueue one trial of `cuda_ms`
 QUEUE_AHEAD_CYCLES = 10_000_000
+# autograd's host cost per backward is ~0.2 ms: 8 of them queue behind the
+# wait, 20 would not
+BACKWARD_REPS = 8
 SOURCES = ("composite_tiles", "composite_tiles_bwd", "weighted_gather_sum",
            "weighted_gather_sum_bwd")
 
@@ -333,6 +348,25 @@ def k5_bound(feat: torch.Tensor, pix: torch.Tensor, g: torch.Tensor):
     return bound(nbytes, 2 * c * pix.numel())
 
 
+def index_bound(pix: torch.Tensor, hw: int):
+    """Least time for the row index: pix read once, row_start and pair
+    written once (a counting sort's integer work is not the limit)."""
+    n, n_vox = pix.shape
+    return bound(4 * (2 * n * n_vox + n * hw + 1), 0)
+
+
+def k5_row_loads(dweight, feat, pix, g, rows) -> int:
+    """The feature rows K5 (`dweight`) loads on these inputs, as the kernel
+    counts them on the card in one more launch."""
+    loads = torch.zeros(1, dtype=torch.int32, device="cuda")
+    dweight(feat, pix, g, rows, loads)
+    n_loads = int(loads.item())
+    check(selected_rows(pix, feat.shape[1]) <= n_loads <= pix.numel(),
+          f"K5 counted {n_loads} feature-row loads: fewer than the rows "
+          f"its pairs select, or more than one per pair")
+    return n_loads
+
+
 def bound(nbytes: int, ops: int):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_F32_S * 1e3
@@ -349,6 +383,34 @@ def embedding_bag_fn(feat, pix, weight):
     w = weight.T.contiguous()
     return lambda: torch.nn.functional.embedding_bag(
         idx, table, per_sample_weights=w, mode="sum")
+
+
+def lift_backward_inputs(kind: str, n: int, hw: int, c: int, v: int,
+                         g: torch.Generator):
+    """feat, pix, weight (10% nonzero) and a cotangent on the card.  pix is
+    uniform, or for `clipped` 55% of each view's pairs fall on its first
+    1% of rows, as the voxels outside a view clip onto its edge pixels."""
+    feat = torch.rand(n, hw, c, device="cuda", generator=g)
+    pix = torch.randint(0, hw, (n, v), device="cuda", generator=g,
+                        dtype=torch.int32)
+    if kind == "clipped":
+        edge = torch.randint(0, hw // 100, (n, v), device="cuda",
+                             generator=g, dtype=torch.int32)
+        pix = torch.where(torch.rand(n, v, device="cuda", generator=g)
+                          < 0.55, edge, pix)
+    weight = torch.rand(n, v, device="cuda", generator=g) \
+        * (torch.rand(n, v, device="cuda", generator=g) < 0.1)
+    cot = torch.randn(v, c, device="cuda", generator=g)
+    return feat, pix, weight, cot
+
+
+def lift_backward_fn(gather, feat, pix, weight, g):
+    """One backward of `gather`'s autograd Function on these inputs (in
+    this port: the row index once, K4 and K5), through autograd.grad."""
+    f = feat.detach().requires_grad_(True)
+    w = weight.detach().requires_grad_(True)
+    out = gather(f, pix, w)
+    return lambda: torch.autograd.grad(out, (f, w), g, retain_graph=True)
 
 
 def embedding_bag_backward_fn(feat, pix, weight, g):
@@ -397,9 +459,9 @@ def detached(args):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
-        "--save-compositor-inputs", metavar="PATH",
+        "--save-kernel-inputs", metavar="PATH",
         help="also torch.save the inputs the training step and the predict "
-             "gave K1 and K2 (for mvsdet_torch/tools/time_compositor.py)")
+             "gave K1, K2, K4 and K5 (for mvsdet_torch/tools/time_kernels.py)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -418,8 +480,9 @@ def main(argv=None) -> int:
     from mvsdet_torch.ops import (build, lift_kernel, splat_kernel,
                                   splat_tiles, voxel_lift)
     from mvsdet_torch.ops.lift_kernel import (
-        weighted_gather_sum, weighted_gather_sum_dfeat,
-        weighted_gather_sum_dfeat_reference, weighted_gather_sum_dweight,
+        lift_rows, lift_rows_reference, weighted_gather_sum,
+        weighted_gather_sum_dfeat, weighted_gather_sum_dfeat_reference,
+        weighted_gather_sum_dfeat_rows_reference, weighted_gather_sum_dweight,
         weighted_gather_sum_dweight_reference, weighted_gather_sum_reference)
     from mvsdet_torch.ops.splat_kernel import (composite_tiles,
                                                composite_tiles_bwd,
@@ -433,7 +496,8 @@ def main(argv=None) -> int:
                "composite_tiles_bwd": composite_tiles_bwd,
                "weighted_gather_sum": weighted_gather_sum,
                "weighted_gather_sum_dfeat": weighted_gather_sum_dfeat,
-               "weighted_gather_sum_dweight": weighted_gather_sum_dweight}
+               "weighted_gather_sum_dweight": weighted_gather_sum_dweight,
+               "lift_rows": lift_rows}
 
     def reset_launches():
         for fn in counted.values():
@@ -509,28 +573,43 @@ def main(argv=None) -> int:
 
     # -- K4 and K5 on random inputs at the training shape ---------------
     n = 40
-    feat = torch.rand(n, hw, c, device="cuda", generator=g)
-    pix = torch.randint(0, hw, (n, v), device="cuda", generator=g,
-                        dtype=torch.int32)
-    weight = torch.rand(n, v, device="cuda", generator=g) \
-        * (torch.rand(n, v, device="cuda", generator=g) < 0.1)
-    cot = torch.randn(v, c, device="cuda", generator=g)
-    k4_rel = rel_err(weighted_gather_sum_dfeat(pix, weight, cot, hw),
-                     weighted_gather_sum_dfeat_reference(pix, weight, cot,
-                                                         hw))
-    k5_rel = rel_err(weighted_gather_sum_dweight(feat, pix, cot),
-                     weighted_gather_sum_dweight_reference(feat, pix, cot))
-    emit(phase="K4", n=n, hw=hw, c=c, v=v, max_rel_err=k4_rel,
-         ms=cuda_ms(lambda: weighted_gather_sum_dfeat(pix, weight, cot, hw)),
-         plain_ms=cuda_ms(lambda: weighted_gather_sum_dfeat_reference(
-             pix, weight, cot, hw), reps=3))
-    emit(phase="K5", n=n, hw=hw, c=c, v=v, max_rel_err=k5_rel,
-         ms=cuda_ms(lambda: weighted_gather_sum_dweight(feat, pix, cot)),
-         plain_ms=cuda_ms(lambda: weighted_gather_sum_dweight_reference(
-             feat, pix, cot), reps=3))
-    check(k4_rel <= 1e-5, f"K4: relative error {k4_rel} > 1e-5")
-    check(k5_rel <= 1e-5, f"K5: relative error {k5_rel} > 1e-5")
-    del feat, pix, weight, cot
+    for kind in ("uniform", "clipped"):
+        feat, pix, weight, cot = lift_backward_inputs(kind, n, hw, c, v, g)
+        rows = lift_rows(pix, hw, True)
+        index_equal = all(torch.equal(a, b) for a, b in zip(
+            rows, lift_rows_reference(pix, hw)))
+        dfeat = weighted_gather_sum_dfeat(pix, weight, cot, hw, rows)
+        same = torch.equal(dfeat, weighted_gather_sum_dfeat(pix, weight, cot,
+                                                            hw))
+        in_order = torch.equal(dfeat, weighted_gather_sum_dfeat_rows_reference(
+            rows, weight, cot, hw))
+        k4_rel = rel_err(dfeat, weighted_gather_sum_dfeat_reference(
+            pix, weight, cot, hw))
+        k5_rel = rel_err(weighted_gather_sum_dweight(feat, pix, cot, rows),
+                         weighted_gather_sum_dweight_reference(feat, pix, cot))
+        emit(phase="K4_K5", case=kind, n=n, hw=hw, c=c, v=v,
+             index_equals_reference=index_equal, k4_max_rel_err=k4_rel,
+             k4_bit_equal_relaunch=same, k4_equals_rows_reference=in_order,
+             k5_max_rel_err=k5_rel,
+             index_ms=cuda_ms(lambda: lift_rows(pix, hw)),
+             k4_ms=cuda_ms(lambda: weighted_gather_sum_dfeat(pix, weight, cot,
+                                                             hw)),
+             k5_ms=cuda_ms(lambda: weighted_gather_sum_dweight(feat, pix,
+                                                               cot)),
+             k4_plain_ms=cuda_ms(lambda: weighted_gather_sum_dfeat_reference(
+                 pix, weight, cot, hw), reps=3),
+             k5_plain_ms=cuda_ms(lambda: weighted_gather_sum_dweight_reference(
+                 feat, pix, cot), reps=3),
+             feature_row_loads=k5_row_loads(weighted_gather_sum_dweight,
+                                            feat, pix, cot, rows))
+        check(index_equal, f"{kind}: the row index differs from "
+                           f"lift_rows_reference")
+        check(same, f"{kind}: two K4 launches differ")
+        check(in_order, f"{kind}: K4 differs from its plain version in its "
+                        f"own order")
+        check(k4_rel <= 1e-5, f"{kind}: K4 relative error {k4_rel} > 1e-5")
+        check(k5_rel <= 1e-5, f"{kind}: K5 relative error {k5_rel} > 1e-5")
+    del feat, pix, weight, cot, rows, dfeat
 
     # -- predict at full ScanNet width ---------------------------------
     cfg = scannet_config()
@@ -730,8 +809,17 @@ def main(argv=None) -> int:
     k2_tol = 1e-4 * max(b.abs().max().item() for b in k2_ref)
     k3_ref = weighted_gather_sum_reference(*k3_args)
     k3_err = (weighted_gather_sum(*k3_args) - k3_ref).abs().max().item()
+    # K4 and K5 got the index the backward built: (..., rows)
+    (pix4, w4, g4, hw4), rows4 = k4_args[:4], k4_args[4]
+    (feat5, pix5, g5), rows5 = k5_args[:3], k5_args[3]
+    k4_args, k5_args = k4_args[:4], k5_args[:3]
+    index_err = max(int((a - b).abs().max()) for a, b in zip(
+        rows4, lift_rows_reference(pix4, hw4)))
+    k4_got = weighted_gather_sum_dfeat(*k4_args)
+    k4_in_order = torch.equal(k4_got, weighted_gather_sum_dfeat_rows_reference(
+        rows4, w4, g4, hw4))
     k4_ref = weighted_gather_sum_dfeat_reference(*k4_args)
-    k4_err = (weighted_gather_sum_dfeat(*k4_args) - k4_ref).abs().max().item()
+    k4_err = (k4_got - k4_ref).abs().max().item()
     k5_ref = weighted_gather_sum_dweight_reference(*k5_args)
     k5_err = (weighted_gather_sum_dweight(*k5_args) - k5_ref).abs().max() \
         .item()
@@ -747,11 +835,21 @@ def main(argv=None) -> int:
           f"K4 on train inputs: {k4_err}")
     check(k5_err <= 1e-5 * k5_ref.abs().max().item(),
           f"K5 on train inputs: {k5_err}")
-    del k1_ref, k2_got, k2_ref, k3_ref, k4_ref, k5_ref
+    check(index_err == 0, f"the step's row index differs from "
+                          f"lift_rows_reference by {index_err}")
+    check(rows5 is rows4, "K4 and K5 got two indexes in one backward")
+    check(k4_in_order, "K4 on train inputs differs from its plain version "
+                       "in its own order")
+    del k1_ref, k2_got, k2_ref, k3_ref, k4_got, k4_ref, k5_ref
 
     feat3, pix3, w3 = k3_args
-    (pix4, w4, g4, hw4), (feat5, pix5, g5) = k4_args, k5_args
     lib_bwd_ms = cuda_ms(embedding_bag_backward_fn(feat3, pix3, w3, g4))
+    index_ms = cuda_ms(lambda: lift_rows(pix4, hw4))
+    backward_ms = cuda_ms(lift_backward_fn(weighted_gather_sum, feat5, pix4,
+                                           w4, g4), reps=BACKWARD_REPS)
+    keys4 = (torch.arange(pix4.shape[0], device="cuda")[:, None] * hw4
+             + pix4.long()).flatten()
+    index_b, index_by = index_bound(pix4, hw4)
     k1_b, k1_by = k1_bound(k1_args[0], k1_args[1], cull)
     k2_b, k2_by = k2_bound(k2_args[0], k2_args[1], cull)
     k1_all, _ = k1_bound(k1_args[0], k1_args[1], cull, all_pairs=True)
@@ -760,7 +858,8 @@ def main(argv=None) -> int:
     k4_b, k4_by = k4_bound(pix4, w4, g4, hw4)
     k5_b, k5_by = k5_bound(feat5, pix5, g5)
     lift_shape = dict(n=feat5.shape[0], hw=feat5.shape[1], c=feat5.shape[2],
-                      v=pix5.shape[1], nonzero_weights=int((w4 != 0).sum()))
+                      v=pix5.shape[1], nonzero_weights=int((w4 != 0).sum()),
+                      selected_rows=selected_rows(pix5, hw4))
     kernels = [
         dict(name="composite_tiles", route="cuda",
              source="mvsdet_torch/ops/csrc/composite_tiles.cu",
@@ -822,7 +921,8 @@ def main(argv=None) -> int:
                  *k4_args), reps=3),
              bound_ms=k4_b, bound_by=k4_by, library_ms=lib_bwd_ms,
              library_covers="K4+K5: one autograd.grad of embedding_bag",
-             shape=lift_shape),
+             index_ms=index_ms, backward_ms=backward_ms,
+             equals_rows_reference=k4_in_order, shape=lift_shape),
         dict(name="weighted_gather_sum_dweight", route="cuda",
              source="mvsdet_torch/ops/csrc/weighted_gather_sum_bwd.cu",
              replaces="mvsdet_tpu/ops/pallas/lift_kernel.py:82",
@@ -835,12 +935,32 @@ def main(argv=None) -> int:
                  *k5_args), reps=3),
              bound_ms=k5_b, bound_by=k5_by, library_ms=lib_bwd_ms,
              library_covers="K4+K5: one autograd.grad of embedding_bag",
+             index_ms=index_ms, backward_ms=backward_ms,
+             feature_row_loads=k5_row_loads(weighted_gather_sum_dweight,
+                                            *k5_args, rows5),
+             pairs=pix5.numel(), shape=lift_shape),
+        dict(name="lift_rows", route="cuda",
+             source="mvsdet_torch/ops/csrc/weighted_gather_sum_bwd.cu",
+             replaces="mvsdet_tpu/ops/pallas/lift_kernel.py:62 and :82 (the "
+                      "one-hot of pix that _dfeat_kernel and _dweight_kernel "
+                      "build)",
+             launches=train_launches["lift_rows"],
+             max_abs_err=float(index_err),
+             ms=index_ms,
+             host_paced_ms=cuda_ms(lambda: lift_rows(pix4, hw4),
+                                   queued=False),
+             plain_ms=cuda_ms(lambda: lift_rows_reference(pix4, hw4),
+                              reps=3),
+             bound_ms=index_b, bound_by=index_by,
+             library_ms=cuda_ms(lambda: torch.sort(keys4, stable=True)),
+             library_covers="pair only: one stable torch.sort of the flat "
+                            "row keys",
              shape=lift_shape),
     ]
-    if opts.save_compositor_inputs:
+    if opts.save_kernel_inputs:
         torch.save({"k1": k1_args, "k2": k2_args,
-                    "k1_predict": k1_predict_args},
-                   opts.save_compositor_inputs)
+                    "k1_predict": k1_predict_args, "k4": k4_args,
+                    "k5": k5_args}, opts.save_kernel_inputs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

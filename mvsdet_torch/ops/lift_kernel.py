@@ -4,18 +4,24 @@ Port of mvsdet_tpu/ops/pallas/lift_kernel.py.  `weighted_gather_sum`
 launches the hand-written kernel `csrc/weighted_gather_sum.cu` on CUDA
 tensors and runs `weighted_gather_sum_reference` on CPU tensors.  When
 feat or weight requires grad it goes through `_WeightedGatherSum`, whose
-backward is `weighted_gather_sum_dfeat` and `weighted_gather_sum_dweight`
-(the two kernels of `csrc/weighted_gather_sum_bwd.cu` on CUDA tensors,
-their plain versions on CPU tensors).  pix takes no gradient.
+backward builds the pairs' row index once (`lift_rows`) and hands it to
+`weighted_gather_sum_dfeat` and `weighted_gather_sum_dweight` (the kernels
+of `csrc/weighted_gather_sum_bwd.cu` on CUDA tensors, their plain versions
+on CPU tensors).  pix takes no gradient.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from mvsdet_torch.ops import build
+
+# the backward kernels hold a row in registers, up to four float4 a lane
+MAX_BACKWARD_CHANNELS = 512
+_INT32_MAX = 2**31 - 1
 
 
 def weighted_gather_sum_reference(feat: torch.Tensor, pix: torch.Tensor,
@@ -42,6 +48,45 @@ def weighted_gather_sum_dfeat_reference(pix: torch.Tensor,
     for i in range(n):
         dfeat[i].index_add_(0, pix[i].long(), g * weight[i, :, None])
     return dfeat
+
+
+def lift_rows_reference(pix: torch.Tensor, hw: int):
+    """Plain row index of the (n, v) pairs, keyed by the flat feature row
+    r = n HW + pix[n, v]: `row_start` (N HW + 1) and `pair` (N V, the flat
+    pair n V + v, rows ascending and v ascending within a row), both
+    int32.  Row r's pairs are pair[row_start[r]:row_start[r + 1]]."""
+    n = pix.shape[0]
+    keys = (torch.arange(n, device=pix.device)[:, None] * hw
+            + pix.long()).flatten()
+    pair = torch.argsort(keys, stable=True).to(torch.int32)
+    row_start = torch.zeros(n * hw + 1, dtype=torch.int64, device=pix.device)
+    row_start[1:] = torch.cumsum(torch.bincount(keys, minlength=n * hw), 0)
+    return row_start.to(torch.int32), pair
+
+
+def weighted_gather_sum_dfeat_rows_reference(rows, weight: torch.Tensor,
+                                             g: torch.Tensor,
+                                             hw: int) -> torch.Tensor:
+    """Plain d-feat in K4's order: each row the sum of weight[n, v] g[v]
+    over its nonzero-weight pairs in ascending v, from 0, from the index
+    `rows` of `lift_rows`.  Returns (N, HW, C)."""
+    row_start, pair = (t.long() for t in rows)
+    n, n_vox = weight.shape
+    n_rows = n * hw
+    row = torch.repeat_interleave(torch.arange(n_rows, device=g.device),
+                                  row_start.diff())
+    w = weight.flatten()[pair]
+    keep = w != 0
+    row, vox, w = row[keep], (pair % n_vox)[keep], w[keep]
+    per_row = torch.bincount(row, minlength=n_rows)
+    rank = torch.arange(row.numel(), device=g.device) \
+        - (torch.cumsum(per_row, 0) - per_row)[row]
+    dfeat = torch.zeros((n_rows, g.shape[1]), dtype=torch.float32,
+                        device=g.device)
+    for k in range(int(per_row.max()) if row.numel() else 0):
+        at = rank == k                      # at most one pair per row
+        dfeat[row[at]] = dfeat[row[at]] + g[vox[at]] * w[at, None]
+    return dfeat.reshape(n, hw, g.shape[1])
 
 
 def weighted_gather_sum_dweight_reference(feat: torch.Tensor,
@@ -124,29 +169,93 @@ def _check_g(g: torch.Tensor, n_vox: int, c: int):
     if g.shape != (n_vox, c):
         raise ValueError(f"g must be ({n_vox}, {c}), got {tuple(g.shape)}")
     _check_rows(g, "g")
+    if g.device.type == "cuda" and c > MAX_BACKWARD_CHANNELS:
+        raise ValueError(f"the CUDA backward holds a row of at most "
+                         f"{MAX_BACKWARD_CHANNELS} channels, got C={c}")
+
+
+def _check_index_size(n: int, hw: int, n_vox: int):
+    """The row index counts rows and pairs in int32."""
+    if n * hw > _INT32_MAX or n * n_vox > _INT32_MAX:
+        raise ValueError(f"the row index holds int32: N*HW = {n * hw} and "
+                         f"N*V = {n * n_vox} must be below 2**31")
+
+
+def _check_index(rows, n: int, hw: int, n_vox: int, device):
+    row_start, pair = rows
+    if row_start.shape != (n * hw + 1,) or pair.shape != (n * n_vox,) \
+            or row_start.dtype != torch.int32 or pair.dtype != torch.int32:
+        raise ValueError(f"rows must be lift_rows' int32 ({n * hw + 1},) "
+                         f"row_start and ({n * n_vox},) pair")
+    if row_start.device != device or pair.device != device:
+        raise ValueError("rows must be on the device of pix")
+
+
+def lift_rows(pix: torch.Tensor, hw: int, check: bool = False):
+    """The row index of the (n, v) pairs that K4 and K5 walk:
+    `(row_start, pair)`, as `lift_rows_reference` defines them.
+
+    A counting sort on the card (`csrc/weighted_gather_sum_bwd.cu`
+    `lift_rows`, no library sort; the same pix gives the same bits),
+    `lift_rows_reference` on CPU tensors.  Every pix must lie in [0, hw):
+    the kernel leaves a pair outside that range out, and K4 and K5 would
+    then read entries of `pair` it never wrote.  `check` raises ValueError
+    on such a pix first, at the cost of one read from the card.
+    """
+    _check_pix(pix, pix.shape[0], pix.device)
+    n, n_vox = pix.shape
+    _check_index_size(n, hw, n_vox)
+    if check and pix.numel():
+        low, high = torch.aminmax(pix)
+        if low < 0 or high >= hw:
+            raise ValueError(f"pix must lie in [0, {hw}), got "
+                             f"[{int(low)}, {int(high)}]")
+    if pix.device.type == "cpu":
+        return lift_rows_reference(pix, hw)
+    pix = pix.contiguous()
+    row_start = torch.empty(n * hw + 1, dtype=torch.int32, device=pix.device)
+    pair = torch.empty(n * n_vox, dtype=torch.int32, device=pix.device)
+    lib = _library("weighted_gather_sum_bwd")
+    with torch.cuda.device(pix.device):
+        err = lib.lift_rows(pix.data_ptr(), row_start.data_ptr(),
+                            pair.data_ptr(), n, hw, n_vox,
+                            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"lift_rows kernel launch failed: cudaError {err}")
+    lift_rows.launches += 1
+    return row_start, pair
 
 
 def weighted_gather_sum_dfeat(pix: torch.Tensor, weight: torch.Tensor,
-                              g: torch.Tensor, hw: int) -> torch.Tensor:
+                              g: torch.Tensor, hw: int,
+                              rows=None) -> torch.Tensor:
     """d-feat of `weighted_gather_sum` for the output cotangent g (V, C).
 
-    K4 on CUDA tensors (fp32 atomics: the last bits vary from run to run),
-    the plain version on CPU tensors.  Returns (N, HW, C).
+    K4 on CUDA tensors: each (N, HW) row written once, the sum over its
+    nonzero-weight pairs in ascending v (bit-equal to
+    `weighted_gather_sum_dfeat_rows_reference`), from the index `rows` of
+    `lift_rows`, built here when None.  The plain version on CPU tensors,
+    which needs no index.  Returns (N, HW, C).
     """
     _check_g(g, pix.shape[1], g.shape[-1])
     _check_pix(pix, pix.shape[0], g.device, weight)
+    n, n_vox = pix.shape
+    _check_index_size(n, hw, n_vox)
+    if rows is not None:
+        _check_index(rows, n, hw, n_vox, pix.device)
     if pix.device.type == "cpu":
         return weighted_gather_sum_dfeat_reference(pix, weight, g, hw)
-    n, n_vox = pix.shape
     c = g.shape[1]
+    row_start, pair = lift_rows(pix, hw) if rows is None else rows
     (g,) = _aligned(g)
-    pix, weight = pix.contiguous(), weight.contiguous()
-    dfeat = torch.zeros((n, hw, c), dtype=torch.float32, device=g.device)
+    weight = weight.contiguous()
+    dfeat = torch.empty((n, hw, c), dtype=torch.float32, device=g.device)
     lib = _library("weighted_gather_sum_bwd")
     with torch.cuda.device(g.device):
         err = lib.weighted_gather_sum_dfeat(
-            pix.data_ptr(), weight.data_ptr(), g.data_ptr(), dfeat.data_ptr(),
-            n, hw, n_vox, c, torch.cuda.current_stream().cuda_stream)
+            row_start.data_ptr(), pair.data_ptr(), weight.data_ptr(),
+            g.data_ptr(), dfeat.data_ptr(), n, hw, n_vox, c,
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"weighted_gather_sum_dfeat kernel launch failed: "
                            f"cudaError {err}")
@@ -155,11 +264,15 @@ def weighted_gather_sum_dfeat(pix: torch.Tensor, weight: torch.Tensor,
 
 
 def weighted_gather_sum_dweight(feat: torch.Tensor, pix: torch.Tensor,
-                                g: torch.Tensor) -> torch.Tensor:
+                                g: torch.Tensor, rows=None,
+                                row_loads=None) -> torch.Tensor:
     """d-weight of `weighted_gather_sum` for the output cotangent g (V, C).
 
-    K5 on CUDA tensors, the plain version on CPU tensors.  Every (n, v)
-    pair is computed, zero weights included.  Returns (N, V).
+    K5 on CUDA tensors, walking the index `rows` of `lift_rows` (built
+    here when None); the plain version on CPU tensors.  Every (n, v) pair
+    is computed, zero weights included.  `row_loads`, an int32 (1,) tensor
+    on the card, takes K5's count of the feature rows it loaded, added
+    on the card (CUDA only).  Returns (N, V).
     """
     _check(feat, pix, None)
     n, hw, c = feat.shape
@@ -167,15 +280,25 @@ def weighted_gather_sum_dweight(feat: torch.Tensor, pix: torch.Tensor,
     _check_g(g, n_vox, c)
     if g.device != feat.device:
         raise ValueError("feat, pix, weight and g must be on one device")
+    _check_index_size(n, hw, n_vox)
+    if rows is not None:
+        _check_index(rows, n, hw, n_vox, pix.device)
+    if row_loads is not None and (
+            row_loads.shape != (1,) or row_loads.dtype != torch.int32
+            or row_loads.device != feat.device or feat.device.type != "cuda"):
+        raise ValueError("row_loads must be an int32 (1,) tensor on the "
+                         "card of feat: only K5 counts its row loads")
     if feat.device.type == "cpu":
         return weighted_gather_sum_dweight_reference(feat, pix, g)
+    _, pair = lift_rows(pix, hw) if rows is None else rows
     feat, g = _aligned(feat, g)
     pix = pix.contiguous()
     dw = torch.empty((n, n_vox), dtype=torch.float32, device=feat.device)
     lib = _library("weighted_gather_sum_bwd")
     with torch.cuda.device(feat.device):
         err = lib.weighted_gather_sum_dweight(
-            feat.data_ptr(), pix.data_ptr(), g.data_ptr(), dw.data_ptr(),
+            feat.data_ptr(), pix.data_ptr(), pair.data_ptr(), g.data_ptr(),
+            dw.data_ptr(), None if row_loads is None else row_loads.data_ptr(),
             n, hw, n_vox, c, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"weighted_gather_sum_dweight kernel launch "
@@ -186,7 +309,7 @@ def weighted_gather_sum_dweight(feat: torch.Tensor, pix: torch.Tensor,
 
 class _WeightedGatherSum(torch.autograd.Function):
     """K3 forward; K4 (d-feat) and K5 (d-weight) backward, each run only
-    when its input needs a gradient."""
+    when its input needs a gradient, from one row index on the card."""
 
     @staticmethod
     def forward(ctx, feat, pix, weight):
@@ -197,11 +320,13 @@ class _WeightedGatherSum(torch.autograd.Function):
     def backward(ctx, g):
         feat, pix, weight = ctx.saved_tensors
         g = g.contiguous()
+        hw = feat.shape[1]
+        rows = lift_rows(pix, hw) if pix.device.type == "cuda" else None
         dfeat = dweight = None
         if ctx.needs_input_grad[0]:
-            dfeat = weighted_gather_sum_dfeat(pix, weight, g, feat.shape[1])
+            dfeat = weighted_gather_sum_dfeat(pix, weight, g, hw, rows)
         if ctx.needs_input_grad[2]:
-            dweight = weighted_gather_sum_dweight(feat, pix, g)
+            dweight = weighted_gather_sum_dweight(feat, pix, g, rows)
         return dfeat, None, dweight
 
 
@@ -228,21 +353,25 @@ def weighted_gather_sum(feat: torch.Tensor, pix: torch.Tensor,
 weighted_gather_sum.launches = 0
 weighted_gather_sum_dfeat.launches = 0
 weighted_gather_sum_dweight.launches = 0
+lift_rows.launches = 0
 
+# each entry point's (pointers, ints), then the stream
 _SIGNATURES = {
-    "weighted_gather_sum": {"weighted_gather_sum_fwd": 4},
-    "weighted_gather_sum_bwd": {"weighted_gather_sum_dfeat": 4,
-                                "weighted_gather_sum_dweight": 4},
+    "weighted_gather_sum": {"weighted_gather_sum_fwd": (4, 4)},
+    "weighted_gather_sum_bwd": {"lift_rows": (3, 3),
+                                "weighted_gather_sum_dfeat": (5, 4),
+                                "weighted_gather_sum_dweight": (6, 4)},
 }
 
 
+@functools.cache
 def _library(name: str) -> ctypes.CDLL:
     """The library of `csrc/<name>.cu` with every entry point typed: its
-    pointers, then four ints (n, hw, n_vox, c), then the stream."""
+    pointers, then its ints (n, hw, n_vox, ...), then the stream."""
     lib = build.load(name)
-    for fn_name, n_ptr in _SIGNATURES[name].items():
+    for fn_name, (n_ptr, n_int) in _SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib

@@ -10,8 +10,9 @@ with `torch.profiler` and prints JSON lines: the card (as nvidia-smi names
 it, with its power limit), the traced step's host latency, the device's
 busy time (the union of its kernel intervals) and idle share over that
 latency, its device-to-host copies, the peak memory, the time of the
-port's five kernels (K1's and K2's also by pass), and the kernels that
-took the most device time, summed by name.  TF32 is off, as in the JAX package's float32 step.
+port's five kernels and the lift backward's index (K1's and K2's also by
+pass), and the kernels that took the most device time, summed by name.
+TF32 is off, as in the JAX package's float32 step.
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ PORT_KERNELS = {
     "composite_tiles_bwd_kernel": ("K2 composite_tiles_bwd", "backward walk"),
     "weighted_gather_sum_kernel": ("K3 weighted_gather_sum", None),
     "dfeat_kernel": ("K4 weighted_gather_sum_dfeat", None),
-    "dweight_kernel": ("K5 weighted_gather_sum_dweight", None)}
+    "dweight_kernel": ("K5 weighted_gather_sum_dweight", None),
+    "lift_rows_kernel": ("K4/K5 index lift_rows", None)}
 
 
 def _port_kernel(name: str):

@@ -20,8 +20,9 @@ from mvsdet_torch.data.synthetic import make_synthetic_scene
 from mvsdet_torch.evaluation.harness import make_predict_fn
 from mvsdet_torch.models.mvsdet import build_model
 from mvsdet_torch.ops.lift_kernel import (
-    weighted_gather_sum, weighted_gather_sum_dfeat,
-    weighted_gather_sum_dfeat_reference, weighted_gather_sum_dweight,
+    lift_rows, lift_rows_reference, weighted_gather_sum,
+    weighted_gather_sum_dfeat, weighted_gather_sum_dfeat_reference,
+    weighted_gather_sum_dfeat_rows_reference, weighted_gather_sum_dweight,
     weighted_gather_sum_dweight_reference, weighted_gather_sum_reference)
 from mvsdet_torch.ops.splat_kernel import (
     ALPHA_MIN, KERNEL_CONSTANTS, _bwd_library, _fwd_library, _pairs,
@@ -29,6 +30,8 @@ from mvsdet_torch.ops.splat_kernel import (
     composite_tiles_bwd_reference, composite_tiles_reference, cull_boxes,
     cull_boxes_reference, kernel_constants)
 from mvsdet_torch.training.loop import create_train_state, make_train_step
+
+from _lift_cases import lift_case
 
 pytestmark = pytest.mark.cuda
 
@@ -283,6 +286,75 @@ def test_gather_backward_matches_plain_versions(cuda, n, hw, c, v):
     assert (dw - want).abs().max() <= 1e-5 * want.abs().max()
 
 
+# the index kernel runs one CTA per (view, 1024 rows)
+LIFT_CASES = [
+    ("uniform", 5, 40, 264, 70),          # C above 256: three float4 a lane
+    ("uniform", 3, 12, 8, 9),             # fewer pairs than a warp
+    ("clipped", 4, 4800, 256, 25600),     # the step's views
+    ("single_row", 2, 4800, 256, 25600),  # a view's 25,600 pairs on one row
+    ("zero_weight", 3, 300, 64, 2000),
+    ("sparse_rows", 3, 5000, 32, 700),    # five chunks, most rows empty
+]
+
+
+@pytest.mark.parametrize("kind,n,hw,c,v", LIFT_CASES)
+def test_lift_backward_kernels_on_layouts(cuda, kind, n, hw, c, v):
+    """The row index equals its plain version; K4 is bit-equal to its plain
+    version in its own order and to a second launch; K4 and K5 within
+    1e-5 of max |plain|."""
+    feat, pix, weight, g = (torch.from_numpy(a).to(cuda)
+                            for a in lift_case(kind, n, hw, c, v))
+    rows = lift_rows(pix, hw)
+    for got, want in zip(rows, lift_rows_reference(pix, hw)):
+        assert torch.equal(got, want)
+    dfeat = weighted_gather_sum_dfeat(pix, weight, g, hw, rows)
+    assert torch.equal(dfeat, weighted_gather_sum_dfeat(pix, weight, g, hw))
+    assert torch.equal(dfeat, weighted_gather_sum_dfeat_rows_reference(
+        rows, weight, g, hw))
+    want = weighted_gather_sum_dfeat_reference(pix, weight, g, hw)
+    assert (dfeat - want).abs().max() <= 1e-5 * want.abs().max()
+    if kind == "zero_weight":
+        assert not dfeat.any()
+    loads = torch.zeros(1, dtype=torch.int32, device=cuda)
+    dw = weighted_gather_sum_dweight(feat, pix, g, rows, loads)
+    want = weighted_gather_sum_dweight_reference(feat, pix, g)
+    assert (dw - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(dw, weighted_gather_sum_dweight(feat, pix, g))
+    # K5 loads each row its pairs select at least once, and at most once a
+    # pair; a view's pairs on one row are read once per run, not per pair
+    selected = torch.unique(torch.arange(n, device=cuda)[:, None] * hw
+                            + pix.long()).numel()
+    assert selected <= int(loads) <= n * v
+    if kind == "single_row":
+        assert int(loads) * 16 <= n * v
+
+
+def test_lift_backward_refuses_what_the_kernels_do_not_take(cuda):
+    pix = torch.zeros(2, 5, dtype=torch.int32, device=cuda)
+    w = torch.zeros(2, 5, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        weighted_gather_sum_dfeat(pix, w, torch.zeros(5, 6, device=cuda), 6)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        weighted_gather_sum_dweight(torch.zeros(2, 6, 6, device=cuda), pix,
+                                    torch.zeros(5, 6, device=cuda))
+    with pytest.raises(ValueError, match="512"):
+        weighted_gather_sum_dfeat(pix, w, torch.zeros(5, 516, device=cuda),
+                                  6)
+    with pytest.raises(ValueError, match="int32"):
+        weighted_gather_sum_dfeat(pix, w, torch.zeros(5, 8, device=cuda),
+                                  2**30)
+    with pytest.raises(ValueError, match="int32"):
+        lift_rows(torch.zeros(1, 1, dtype=torch.int32, device=cuda)
+                  .expand(2, 2**30), 4)
+    with pytest.raises(ValueError, match="row_loads"):
+        weighted_gather_sum_dweight(torch.zeros(2, 6, 8, device=cuda), pix,
+                                    torch.zeros(5, 8, device=cuda), None,
+                                    torch.zeros(1, device=cuda))
+    with pytest.raises(ValueError, match=r"\[0, 6\)"):
+        lift_rows(torch.full((2, 5), 6, dtype=torch.int32, device=cuda), 6,
+                  check=True)
+
+
 def test_gradients_run_the_backward_kernels(cuda):
     data, vals = (t.to(cuda).requires_grad_(True)
                   for t in tables(4, 64, 3, 2))
@@ -293,14 +365,11 @@ def test_gradients_run_the_backward_kernels(cuda):
     feat = torch.rand(2, 6, 4, device=cuda, requires_grad=True)
     w = torch.rand(2, 5, device=cuda, requires_grad=True)
     pix = torch.randint(0, 6, (2, 5), dtype=torch.int32, device=cuda)
-    before = (weighted_gather_sum.launches,
-              weighted_gather_sum_dfeat.launches,
-              weighted_gather_sum_dweight.launches)
+    counted = (weighted_gather_sum, weighted_gather_sum_dfeat,
+               weighted_gather_sum_dweight, lift_rows)
+    before = [k.launches for k in counted]
     weighted_gather_sum(feat, pix, w).sum().backward()
-    assert (weighted_gather_sum.launches,
-            weighted_gather_sum_dfeat.launches,
-            weighted_gather_sum_dweight.launches) == tuple(
-                b + 1 for b in before)
+    assert [k.launches for k in counted] == [b + 1 for b in before]
     assert feat.grad is not None and w.grad is not None
 
 
@@ -337,8 +406,8 @@ def test_predict_on_card_matches_cpu(cuda):
 
 def test_train_step_on_card_matches_cpu(cuda):
     """Two steps of the tiny narrow model, on the card and on the CPU from
-    the same weights: each of the five kernels launched once per step, the
-    losses within 1e-4 relative."""
+    the same weights: each of the five kernels and the lift's row index
+    launched once per step, the losses within 1e-4 relative."""
     base = tiny_test_config()
     cfg = dataclasses.replace(base, model=dataclasses.replace(
         base.model, neck3d_out_channels=16,
@@ -350,7 +419,8 @@ def test_train_step_on_card_matches_cpu(cuda):
         cfg, dev, torch.Generator().manual_seed(0), sweep_chunk=2)
         for dev in ("cpu", "cuda")}
     kernels = (composite_tiles, composite_tiles_bwd, weighted_gather_sum,
-               weighted_gather_sum_dfeat, weighted_gather_sum_dweight)
+               weighted_gather_sum_dfeat, weighted_gather_sum_dweight,
+               lift_rows)
     before = [k.launches for k in kernels]
     metrics = {dev: [make_train_step(st)(scene) for _ in range(2)]
                for dev, st in states.items()}
