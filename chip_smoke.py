@@ -25,6 +25,9 @@ Phases, each printed as one JSON line:
   K3       the voxel-lift gather against its plain version and against
            F.embedding_bag at N=80, HW=4800, C=256, V=25600: max error
            <= 1e-5 of max |out|
+  K3_bf16  its bf16-feature variant on the same inputs in bf16: max error
+           <= 1e-5 of max |out|, and bit-equal to the float32 kernel on
+           the rows widened to float32
   K4_K5    the gather's backward at the training shape N=40, HW=4800,
            C=256, V=25600 with 10% of the weights nonzero, pix uniform and
            clipped-heavy (55% of the pairs on 1% of the rows): the pairs'
@@ -33,15 +36,24 @@ Phases, each printed as one JSON line:
            to its plain version in its own order and to a second launch;
            the feature rows K5 loads, counted on the card, at least the
            distinct rows the pairs select and at most one per pair
+  K4_K5_bf16
+           the bf16 variants on the same inputs with bf16 feature rows:
+           K4's bf16 d-feat bit-equal to its plain version in its own order
+           (rounded once) and to a second launch, and within one bf16 ulp
+           (2^-7 of the value, plus 1e-5 of max |plain|) of the float32
+           index_add_ plain version; K5 within 1e-5 of max |plain|
+           and bit-equal to the float32 kernel on the widened rows
   predict  `scannet_config()` at full width with random weights from a
            seeded generator, three synthetic scenes of 80 source views
            (240x320) and one target (120x160) through `make_predict_fn`,
            launch counts set to 0 just before and read just after (K1 and
            K3 once per scene, the backward kernels never); outputs finite
            and of the expected shapes; then one scene again with the plain
-           versions in place of the kernels: rendered <= 1e-4, lifted
-           volume <= 1e-5 relative, kept boxes and labels equal under the
-           mask
+           versions in place of the kernels (`predict_vs_plain`): rendered
+           <= 1e-4, lifted volume <= 1e-5 relative, kept boxes and labels
+           equal under the mask.  Run in float32, then with the model
+           computing in bf16 (`dtype` in each line), where every K3
+           launch is its bf16 variant
   train    `scannet_config()` with seeded random weights, one synthetic
            scene of 40 source views (240x320) and 2 targets (120x160),
            3 steps through `fit`, launch counts set to 0 just before and
@@ -49,12 +61,16 @@ Phases, each printed as one JSON line:
            each step's loss terms and latency, the steady step time and
            the peak memory;
            losses finite, the trained parameters moved, stem and layer1
-           did not
+           did not, parameters, statistics and AdamW state float32
   train_vs_plain
            one step's forward and backward from the same weights with the
            kernels, then with the plain versions, cuDNN deterministic:
            every loss term <= 1e-5 relative, every parameter's gradient
-           <= 1e-4 (|delta| / |plain|)
+           <= 1e-4 (|delta| / |plain|).  Both run in float32, then in bf16,
+           where K3, K4 and K5 run their bf16 variants once per step; in
+           bf16 a gradient <= 2.5e-2 and all of them together <= 1e-2
+           (K4's one-ulp roundings, spread by the bf16 backward), beside
+           their distance from the float32 run's gradients
   cull     the compositor kernels' own cull boxes (`cull_boxes`) on the
            tables the predict and the training step gave K1, taken through
            the recorders: the slots `cull_boxes_reference` keeps, boxes
@@ -75,17 +91,19 @@ Phases, each printed as one JSON line:
            alone (`index_ms`), one backward of the lift's autograd
            Function (`backward_ms`: the index once, K4, K5) and the
            feature rows K5 loads (`feature_row_loads`, counted on the card
-           by the kernel itself)
+           by the kernel itself); then the bf16 variants of K3, K4 and K5
+           with their launches in the bf16 runs, on the inputs the bf16
+           step gave them (bounds count 2 bytes a bf16 value)
 
     python3 chip_smoke.py --save-kernel-inputs PATH
 
-also saves the inputs the step and the predict gave K1, K2, K4 and K5, on
-which `mvsdet_torch/tools/time_kernels.py` times those kernels of any
-checkout with this script's `cuda_ms`.
+also saves the inputs the step and the predict gave K1, K2, K4 and K5 (and
+the bf16 step K3, K4 and K5), on which `mvsdet_torch/tools/time_kernels.py`
+times those kernels of any checkout with this script's `cuda_ms`.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises,
 and the script exits non-zero without that line.  TF32 is off throughout
-(the JAX package runs in float32 here).  Times come from CUDA events,
+(the JAX package's float32 runs in full float32).  Times come from CUDA events,
 latencies from the host clock around work that ends in a copy to host.
 """
 
@@ -94,6 +112,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -160,6 +179,16 @@ def check(ok: bool, what: str):
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over max |want|."""
     return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def bf16_rounding_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """How far a bf16 result is from a float32 one computed in another
+    order, as a share of one bf16 ulp of the value (at most 2^-7 of it)
+    plus 1e-5 of the largest (the float32 sums' order, where they
+    cancel).  About 0.5 at most when got is want rounded to bf16."""
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    allowed = 2.0 ** -7 * want.abs() + 1e-5 * want.abs().max()
+    return ((got - want).abs() / allowed.clamp_min(1e-30)).max().item()
 
 
 def random_tables(n_tiles: int, k: int, c: int, g: torch.Generator,
@@ -317,34 +346,36 @@ def selected_rows(pix: torch.Tensor, hw: int, mask=None) -> int:
 
 def k3_bound(feat: torch.Tensor, pix: torch.Tensor, weight: torch.Tensor):
     """Least time for the gather on these inputs: the feature rows its
-    nonzero weights select, read once, with pix and weight, and the
-    output written once, against 2 flops per selected value."""
+    nonzero weights select, read once (4 or 2 bytes a value), with pix and
+    weight, and the float32 output written once, against 2 flops per
+    selected value."""
     n, hw, c = feat.shape
     nz = weight != 0
-    nbytes = 4 * (selected_rows(pix, hw, nz) * c + 2 * pix.numel()
-                  + pix.shape[1] * c)
+    nbytes = (selected_rows(pix, hw, nz) * c * feat.element_size()
+              + 4 * (2 * pix.numel() + pix.shape[1] * c))
     return bound(nbytes, 2 * c * int(nz.sum()))
 
 
 def k4_bound(pix: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
-             hw: int):
+             hw: int, out_bytes: int = 4):
     """Least time for d-feat on these inputs: pix, weight and g read once,
-    the (N, HW, C) output written once, against 2 flops per value of each
-    nonzero-weight pair."""
+    the (N, HW, C) output written once (`out_bytes` a value: 4, or 2 in
+    bf16), against 2 flops per value of each nonzero-weight pair."""
     n, n_vox = pix.shape
     c = g.shape[1]
     nz = int((weight != 0).sum())
-    nbytes = 4 * (2 * pix.numel() + g.numel() + n * hw * c)
+    nbytes = 4 * (2 * pix.numel() + g.numel()) + out_bytes * n * hw * c
     return bound(nbytes, 2 * c * nz)
 
 
 def k5_bound(feat: torch.Tensor, pix: torch.Tensor, g: torch.Tensor):
     """Least time for d-weight on these inputs: the feature rows that
-    every (n, v) pair selects, read once, with pix and g, and the (N, V)
-    output written once, against 2 flops per value of every pair."""
+    every (n, v) pair selects, read once (4 or 2 bytes a value), with pix
+    and g, and the (N, V) output written once, against 2 flops per value
+    of every pair."""
     n, hw, c = feat.shape
-    nbytes = 4 * (selected_rows(pix, hw) * c + pix.numel() + g.numel()
-                  + pix.numel())
+    nbytes = (selected_rows(pix, hw) * c * feat.element_size()
+              + 4 * (pix.numel() + g.numel() + pix.numel()))
     return bound(nbytes, 2 * c * pix.numel())
 
 
@@ -375,12 +406,13 @@ def bound(nbytes: int, ops: int):
 
 def embedding_bag_fn(feat, pix, weight):
     """One PyTorch call computing the gather: bags of the N views' rows
-    per voxel (a yardstick only; the port never calls it)."""
+    per voxel (a yardstick only; the port never calls it).  On bf16 rows
+    it takes bf16 weights and sums into bf16, its only bf16 form."""
     n, hw, c = feat.shape
     idx = (torch.arange(n, device=pix.device)[:, None] * hw
            + pix.long()).T.contiguous()
     table = feat.reshape(n * hw, c)
-    w = weight.T.contiguous()
+    w = weight.T.contiguous().to(feat.dtype)     # it takes the table's type
     return lambda: torch.nn.functional.embedding_bag(
         idx, table, per_sample_weights=w, mode="sum")
 
@@ -430,7 +462,8 @@ class Recorder:
     """Stands in for a kernel wrapper at its call site: calls `fn` and
     keeps the first call's inputs and output.  A wrapper counts its own
     launches through its module's name for it, which then names the
-    Recorder, so `launches` passes through to the wrapper."""
+    Recorder, so `launches` and `bf16_launches` pass through to the
+    wrapper."""
 
     def __init__(self, fn):
         self.fn = fn
@@ -443,6 +476,14 @@ class Recorder:
     @launches.setter
     def launches(self, n):
         self.fn.launches = n
+
+    @property
+    def bf16_launches(self):
+        return self.fn.bf16_launches
+
+    @bf16_launches.setter
+    def bf16_launches(self, n):
+        self.fn.bf16_launches = n
 
     def __call__(self, *args):
         out = self.fn(*args)
@@ -461,7 +502,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--save-kernel-inputs", metavar="PATH",
         help="also torch.save the inputs the training step and the predict "
-             "gave K1, K2, K4 and K5 (for mvsdet_torch/tools/time_kernels.py)")
+             "gave K1, K2, K4 and K5, and the bf16 step K3, K4 and K5 (for "
+             "mvsdet_torch/tools/time_kernels.py)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -499,9 +541,19 @@ def main(argv=None) -> int:
                "weighted_gather_sum_dweight": weighted_gather_sum_dweight,
                "lift_rows": lift_rows}
 
+    # the wrappers whose bf16 variants count their own launches too
+    counted_bf16 = {name: fn for name, fn in counted.items()
+                    if hasattr(fn, "bf16_launches")}
+
     def reset_launches():
         for fn in counted.values():
             fn.launches = 0
+        for fn in counted_bf16.values():
+            fn.bf16_launches = 0
+
+    def read_launches():
+        return ({name: fn.launches for name, fn in counted.items()},
+                {name: fn.bf16_launches for name, fn in counted_bf16.items()})
 
     # -- device --------------------------------------------------------
     smi = subprocess.run(
@@ -569,7 +621,19 @@ def main(argv=None) -> int:
              feat, pix, weight), reps=3),
          library_ms=cuda_ms(embedding_bag_fn(feat, pix, weight)))
     check(rel <= 1e-5, f"K3: relative error {rel} > 1e-5")
-    del feat, pix, weight, ref
+    feat16 = feat.to(torch.bfloat16)
+    got = weighted_gather_sum(feat16, pix, weight)
+    rel = rel_err(got, weighted_gather_sum_reference(feat16, pix, weight))
+    same = torch.equal(got, weighted_gather_sum(feat16.float(), pix, weight))
+    emit(phase="K3_bf16", n=n, hw=hw, c=c, v=v, max_rel_err=rel,
+         equals_float32_kernel_on_widened_rows=same,
+         ms=cuda_ms(lambda: weighted_gather_sum(feat16, pix, weight)),
+         plain_ms=cuda_ms(lambda: weighted_gather_sum_reference(
+             feat16, pix, weight), reps=3),
+         library_ms=cuda_ms(embedding_bag_fn(feat16, pix, weight)))
+    check(rel <= 1e-5, f"K3 bf16: relative error {rel} > 1e-5")
+    check(same, "K3 bf16 differs from the float32 kernel on the widened rows")
+    del feat, feat16, pix, weight, ref, got
 
     # -- K4 and K5 on random inputs at the training shape ---------------
     n = 40
@@ -609,190 +673,328 @@ def main(argv=None) -> int:
                         f"own order")
         check(k4_rel <= 1e-5, f"{kind}: K4 relative error {k4_rel} > 1e-5")
         check(k5_rel <= 1e-5, f"{kind}: K5 relative error {k5_rel} > 1e-5")
-    del feat, pix, weight, cot, rows, dfeat
 
-    # -- predict at full ScanNet width ---------------------------------
+        # the bf16 variants: d-feat rounded once to bf16, d-weight from
+        # bf16 rows
+        bf16 = torch.bfloat16
+        feat16 = feat.to(bf16)
+        dfeat16 = weighted_gather_sum_dfeat(pix, weight, cot, hw, rows, bf16)
+        same = torch.equal(dfeat16, weighted_gather_sum_dfeat(
+            pix, weight, cot, hw, None, bf16))
+        in_order = torch.equal(dfeat16, weighted_gather_sum_dfeat_rows_reference(
+            rows, weight, cot, hw, bf16))
+        k4_share = bf16_rounding_share(
+            dfeat16, weighted_gather_sum_dfeat_reference(pix, weight, cot,
+                                                         hw))
+        dw16 = weighted_gather_sum_dweight(feat16, pix, cot, rows)
+        k5_rel = rel_err(dw16, weighted_gather_sum_dweight_reference(
+            feat16, pix, cot))
+        k5_wide = torch.equal(dw16, weighted_gather_sum_dweight(
+            feat16.float(), pix, cot, rows))
+        emit(phase="K4_K5_bf16", case=kind, n=n, hw=hw, c=c, v=v,
+             k4_bit_equal_relaunch=same, k4_equals_rows_reference=in_order,
+             k4_rounding_share=k4_share, k5_max_rel_err=k5_rel,
+             k5_equals_float32_kernel_on_widened_rows=k5_wide,
+             k4_ms=cuda_ms(lambda: weighted_gather_sum_dfeat(
+                 pix, weight, cot, hw, None, bf16)),
+             k5_ms=cuda_ms(lambda: weighted_gather_sum_dweight(feat16, pix,
+                                                               cot)),
+             k4_plain_ms=cuda_ms(lambda: weighted_gather_sum_dfeat_reference(
+                 pix, weight, cot, hw, bf16), reps=3),
+             k5_plain_ms=cuda_ms(lambda: weighted_gather_sum_dweight_reference(
+                 feat16, pix, cot), reps=3),
+             feature_row_loads=k5_row_loads(weighted_gather_sum_dweight,
+                                            feat16, pix, cot, rows))
+        check(same, f"{kind}: two bf16 K4 launches differ")
+        check(in_order, f"{kind}: bf16 K4 differs from its plain version in "
+                        f"its own order")
+        check(k4_share <= 1, f"{kind}: bf16 K4 is {k4_share} bf16 ulps "
+                             f"from its float32 plain version")
+        check(k5_rel <= 1e-5, f"{kind}: bf16 K5 relative error {k5_rel}")
+        check(k5_wide, f"{kind}: bf16 K5 differs from the float32 kernel on "
+                       f"the widened rows")
+    del feat, feat16, pix, weight, cot, rows, dfeat, dfeat16, dw16
+
+    # -- predict and train at full ScanNet width, float32 then bf16 -----
     cfg = scannet_config()
     mc = cfg.model
-    model = build_model(cfg, device="cuda",
-                        generator=torch.Generator().manual_seed(cfg.seed))
-    predict = make_predict_fn(model)
-    scenes = [make_synthetic_scene(cfg, seed=s, n_views=cfg.data.n_src_test,
-                                   n_targets=cfg.data.nerf_target_views_test)
-              for s in range(N_SCENES)]
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    preds = []
-    for s, scene in enumerate(scenes):
-        t0 = time.perf_counter()
-        preds.append(predict(scene))
-        emit(phase="predict", scene=s, latency_ms=(time.perf_counter() - t0)
-             * 1e3, kept_boxes=int(preds[-1]["mask"].sum()))
-    predict_launches = {name: fn.launches for name, fn in counted.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    emit(phase="predict", scenes=N_SCENES, views=cfg.data.n_src_test,
-         launches=predict_launches, peak_memory_gb=peak_gb)
-    for name, count in predict_launches.items():
-        want = N_SCENES if name in ("composite_tiles",
-                                    "weighted_gather_sum") else 0
-        check(count == want, f"{name} launched {count} times in "
-                             f"{N_SCENES} predicts, expected {want}")
-    md = mc.head.max_detections
-    shapes = dict(boxes=(md, 6), scores=(md,), labels=(md,), mask=(md,),
-                  rendered=(1,) + mc.target_size + (3,),
-                  depth_expect=(cfg.data.n_src_test,) + mc.feature_size)
-    for pred in preds:
-        for key, shape in shapes.items():
-            check(pred[key].shape == shape,
-                  f"{key}: shape {pred[key].shape}, expected {shape}")
-            check(np.all(np.isfinite(pred[key].astype(np.float64))),
-                  f"{key}: not finite")
+    bf16 = torch.bfloat16
+    frozen_prefixes = ("backbone.stem_", "backbone.layer1_")
 
-    # the same scene with the plain versions in place of the kernels;
-    # bit-reproducible convolutions, so that the two predicts differ only
-    # where the kernels and their plain versions differ
-    torch.backends.cudnn.deterministic = True
-    runs = {}
-    for label, lift_fn, comp_fn in (
-            ("kernel", weighted_gather_sum, composite_tiles),
-            ("plain", weighted_gather_sum_reference,
-             composite_tiles_reference)):
-        lift, comp = Recorder(lift_fn), Recorder(comp_fn)
-        with mock.patch.object(voxel_lift, "weighted_gather_sum", lift), \
-                mock.patch.object(splat_tiles, "composite_tiles", comp):
-            runs[label] = (predict(scenes[0]), lift, comp)
-    (pk, lk, ck), (pp, lp, _) = runs["kernel"], runs["plain"]
-    vol_rel = rel_err(lk.out, lp.out)
-    rend_err = float(np.abs(pk["rendered"] - pp["rendered"]).max())
-    mask_equal = bool(np.array_equal(pk["mask"], pp["mask"]))
-    m = pk["mask"]
-    boxes_equal = mask_equal and bool(
-        np.array_equal(pk["labels"][m], pp["labels"][m])
-        and np.allclose(pk["boxes"][m], pp["boxes"][m], rtol=1e-5,
-                        atol=1e-5))
-    emit(phase="predict_vs_plain", volume_max_rel_err=vol_rel,
-         rendered_max_abs_err=rend_err, mask_equal=mask_equal,
-         boxes_labels_equal_under_mask=boxes_equal, kept_boxes=int(m.sum()))
-    check(rend_err <= 1e-4, f"rendered differs by {rend_err} > 1e-4")
-    check(vol_rel <= 1e-5, f"lifted volume differs by {vol_rel} > 1e-5")
-    check(boxes_equal, "kept boxes or labels differ under the mask")
-    k1_predict_args = detached(ck.args)
+    def check_launches(launches, bf16_launches, want, want_bf16, run):
+        for name, count in launches.items():
+            check(count == want[name], f"{run}: {name} launched {count} "
+                                       f"times, expected {want[name]}")
+        for name, count in bf16_launches.items():
+            check(count == want_bf16[name],
+                  f"{run}: {name}'s bf16 variant launched {count} times, "
+                  f"expected {want_bf16[name]}")
+
+    def predict_phases(dtype):
+        """N_SCENES predicts through make_predict_fn with the launch counts
+        set to 0 just before and read just after, then one scene with the
+        kernels against one with the plain versions.  Returns the launches
+        and the tables K1 got."""
+        label = str(dtype).replace("torch.", "")
+        model = build_model(cfg, device="cuda", dtype=dtype,
+                            generator=torch.Generator().manual_seed(cfg.seed))
+        predict = make_predict_fn(model)
+        scenes = [make_synthetic_scene(
+            cfg, seed=s, n_views=cfg.data.n_src_test,
+            n_targets=cfg.data.nerf_target_views_test)
+            for s in range(N_SCENES)]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        preds = []
+        for s, scene in enumerate(scenes):
+            t0 = time.perf_counter()
+            preds.append(predict(scene))
+            emit(phase="predict", dtype=label, scene=s,
+                 latency_ms=(time.perf_counter() - t0) * 1e3,
+                 kept_boxes=int(preds[-1]["mask"].sum()))
+        launches, bf16_launches = read_launches()
+        emit(phase="predict", dtype=label, scenes=N_SCENES,
+             views=cfg.data.n_src_test, launches=launches,
+             bf16_launches=bf16_launches,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check_launches(
+            launches, bf16_launches,
+            {name: N_SCENES if name in ("composite_tiles",
+                                        "weighted_gather_sum") else 0
+             for name in launches},
+            {name: N_SCENES if (name == "weighted_gather_sum"
+                                and dtype == bf16) else 0
+             for name in bf16_launches}, f"{N_SCENES} {label} predicts")
+        md = mc.head.max_detections
+        shapes = dict(boxes=(md, 6), scores=(md,), labels=(md,), mask=(md,),
+                      rendered=(1,) + mc.target_size + (3,),
+                      depth_expect=(cfg.data.n_src_test,) + mc.feature_size)
+        for pred in preds:
+            for key, shape in shapes.items():
+                check(pred[key].shape == shape,
+                      f"{key}: shape {pred[key].shape}, expected {shape}")
+                check(np.all(np.isfinite(pred[key].astype(np.float64))),
+                      f"{key}: not finite")
+
+        # the same scene with the plain versions in place of the kernels;
+        # bit-reproducible convolutions, so that the two predicts differ
+        # only where the kernels and their plain versions differ
+        torch.backends.cudnn.deterministic = True
+        runs = {}
+        for run, lift_fn, comp_fn in (
+                ("kernel", weighted_gather_sum, composite_tiles),
+                ("plain", weighted_gather_sum_reference,
+                 composite_tiles_reference)):
+            lift, comp = Recorder(lift_fn), Recorder(comp_fn)
+            with mock.patch.object(voxel_lift, "weighted_gather_sum", lift), \
+                    mock.patch.object(splat_tiles, "composite_tiles", comp):
+                runs[run] = (predict(scenes[0]), lift, comp)
+        (pk, lk, ck), (pp, lp, _) = runs["kernel"], runs["plain"]
+        check(lk.args[0].dtype == dtype,
+              f"the lift gathered {lk.args[0].dtype} rows in a {label} model")
+        vol_rel = rel_err(lk.out, lp.out)
+        rend_err = float(np.abs(pk["rendered"] - pp["rendered"]).max())
+        mask_equal = bool(np.array_equal(pk["mask"], pp["mask"]))
+        m = pk["mask"]
+        boxes_equal = mask_equal and bool(
+            np.array_equal(pk["labels"][m], pp["labels"][m])
+            and np.allclose(pk["boxes"][m], pp["boxes"][m], rtol=1e-5,
+                            atol=1e-5))
+        emit(phase="predict_vs_plain", dtype=label, volume_max_rel_err=vol_rel,
+             rendered_max_abs_err=rend_err, mask_equal=mask_equal,
+             boxes_labels_equal_under_mask=boxes_equal,
+             kept_boxes=int(m.sum()))
+        check(rend_err <= 1e-4, f"{label}: rendered differs by {rend_err} "
+                                f"> 1e-4")
+        check(vol_rel <= 1e-5, f"{label}: lifted volume differs by "
+                               f"{vol_rel} > 1e-5")
+        check(boxes_equal, f"{label}: kept boxes or labels differ under the "
+                           f"mask")
+        k1_args = detached(ck.args)
+        torch.backends.cudnn.deterministic = False
+        del model, predict, scenes, preds, runs, pk, pp, lk, lp, ck
+        torch.cuda.empty_cache()
+        return launches, bf16_launches, k1_args
+
+    def train_phases(dtype, scene, grads32=None):
+        """TRAIN_STEPS steps through fit with the launch counts set to 0
+        just before and read just after, then one step's forward and
+        backward with the kernels against one with the plain versions (and,
+        given the float32 run's gradients, against those).  Returns the
+        launches, the kernel run's recorders and its gradients (on the
+        host)."""
+        label = str(dtype).replace("torch.", "")
+        state = create_train_state(
+            cfg, device="cuda", dtype=dtype,
+            generator=torch.Generator().manual_seed(cfg.seed))
+        params0 = {k: p.detach().clone()
+                   for k, p in state.model.named_parameters()}
+        step_logs = []
+        t_start = [time.perf_counter()]
+
+        def log_step(i, metrics):
+            now = time.perf_counter()
+            step_logs.append(dict(step=i, latency_ms=(now - t_start[0]) * 1e3,
+                                  **metrics))
+            t_start[0] = now
+            emit(phase="train", dtype=label, **step_logs[-1])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t_start[0] = time.perf_counter()
+        fit(state, (scene for _ in range(TRAIN_STEPS)), TRAIN_STEPS,
+            log_every=1, log_fn=log_step)
+        launches, bf16_launches = read_launches()
+        steady = [s["latency_ms"] for s in step_logs[1:]]
+        emit(phase="train", dtype=label, steps=TRAIN_STEPS,
+             views=cfg.data.n_src_train,
+             targets=cfg.data.nerf_target_views_train, launches=launches,
+             bf16_launches=bf16_launches,
+             first_step_ms=step_logs[0]["latency_ms"],
+             steady_step_ms=statistics.mean(steady),
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        check_launches(
+            launches, bf16_launches, {name: TRAIN_STEPS for name in launches},
+            {name: TRAIN_STEPS if dtype == bf16 else 0
+             for name in bf16_launches},
+            f"{TRAIN_STEPS} {label} train steps")
+        for log in step_logs:
+            check(all(np.isfinite(v) for k, v in log.items()
+                      if k not in ("step", "latency_ms")),
+                  f"{label} step {log['step']}: a loss is not finite: {log}")
+            check(log["loss_nvs"] > 0 and "cls_loss" in log,
+                  f"{label} step {log['step']}: loss terms missing: {log}")
+        moved = frozen_moved = 0
+        for name, p in state.model.named_parameters():
+            changed = not torch.equal(p.detach(), params0[name])
+            if name.startswith(frozen_prefixes):
+                frozen_moved += changed
+            else:
+                moved += changed
+        state_dtypes = sorted({str(t.dtype) for t in (
+            list(state.model.parameters()) + list(state.model.buffers())
+            + [v for st in state.optimizer.state.values()
+               for v in st.values() if torch.is_tensor(v) and v.ndim])})
+        emit(phase="train", dtype=label, parameters_moved=moved,
+             frozen_moved=frozen_moved, state_dtypes=state_dtypes)
+        check(moved > 0.9 * sum(1 for n in params0
+                                if not n.startswith(frozen_prefixes)),
+              f"{label}: only {moved} trainable parameters moved")
+        check(frozen_moved == 0, f"{label}: {frozen_moved} frozen parameters "
+                                 f"moved")
+        check(state_dtypes == ["torch.float32"],
+              f"{label}: parameters, statistics or AdamW state in "
+              f"{state_dtypes}")
+        del state, params0
+
+        # one step with the kernels, then with the plain versions
+        torch.backends.cudnn.deterministic = True
+        base = create_train_state(
+            cfg, device="cuda", dtype=dtype,
+            generator=torch.Generator().manual_seed(cfg.seed))
+        batch = {k: torch.as_tensor(v).cuda() for k, v in scene.items()}
+        recorders = {}
+        results = {}
+        for run in ("kernel", "plain"):
+            model = copy.deepcopy(base.model)
+            if run == "kernel":
+                rec = recorders = {
+                    "composite_tiles": (splat_tiles, Recorder(composite_tiles)),
+                    "composite_tiles_bwd": (splat_kernel,
+                                            Recorder(composite_tiles_bwd)),
+                    "weighted_gather_sum": (voxel_lift,
+                                            Recorder(weighted_gather_sum)),
+                    "weighted_gather_sum_dfeat": (
+                        lift_kernel, Recorder(weighted_gather_sum_dfeat)),
+                    "weighted_gather_sum_dweight": (
+                        lift_kernel, Recorder(weighted_gather_sum_dweight))}
+            else:
+                rec = {"composite_tiles": (splat_tiles, Recorder(
+                           composite_tiles_reference)),
+                       "weighted_gather_sum": (voxel_lift, Recorder(
+                           weighted_gather_sum_reference))}
+            patches = [mock.patch.object(mod, name, r)
+                       for name, (mod, r) in rec.items()]
+            for p in patches:
+                p.start()
+            try:
+                total, aux = model.loss(batch)
+                total.backward()
+            finally:
+                for p in patches:
+                    p.stop()
+            results[run] = ({k: v.item() for k, v in aux.items()},
+                            {k: p.grad for k, p in model.named_parameters()
+                             if p.grad is not None})
+            del model, total, aux
+        (lk_, gk), (lp_, gp) = results["kernel"], results["plain"]
+        loss_rel = {k: abs(lk_[k] - lp_[k]) / max(abs(lp_[k]), 1e-30)
+                    for k in lp_}
+        check(set(gk) == set(gp), f"{label}: the two runs give gradients to "
+                                  f"different parameters")
+        def rel_by_leaf(a, b):
+            return {k: (torch.linalg.vector_norm(a[k] - b[k])
+                        / torch.linalg.vector_norm(b[k]).clamp_min(1e-30))
+                    .item() for k in b}
+
+        def rel_all(a, b):
+            return math.sqrt(sum(float((a[k] - b[k]).square().sum())
+                                 for k in b)
+                             / sum(float(b[k].square().sum()) for k in b))
+
+        grad_rel = rel_by_leaf(gk, gp)
+        worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:5]
+        extra = {}
+        if grads32 is not None:
+            # the witness: how far this dtype's gradients are from the
+            # float32 run's, same weights, same scene (kept on the host)
+            gk_host = {k: v.cpu() for k, v in gk.items()}
+            witness = rel_by_leaf(gk_host, grads32)
+            extra = dict(all_grads_rel_err_from_float32=rel_all(gk_host,
+                                                                grads32),
+                         worst_grads_from_float32=sorted(
+                             witness.items(), key=lambda kv: -kv[1])[:5])
+        all_rel = rel_all(gk, gp)
+        emit(phase="train_vs_plain", dtype=label, loss_rel_err=loss_rel,
+             max_grad_rel_err=worst[0][1], all_grads_rel_err=all_rel,
+             worst_grads=worst, n_grads=len(grad_rel), **extra)
+        check(max(loss_rel.values()) <= 1e-5,
+              f"{label}: loss terms differ: {loss_rel}")
+        # float32: the kernels and the plain versions sum in other orders.
+        # bf16: K4 rounds each d-feat value once from its own float32 sum
+        # and the plain backward from another, so now and then a value
+        # differs by one bf16 ulp, and the bf16 backward of the FPN and
+        # ResNet spreads those flips into every backbone gradient (7.9e-3
+        # on the worst leaf at these inputs)
+        leaf_tol, all_tol = (1e-4, 1e-4) if dtype == torch.float32 \
+            else (2.5e-2, 1e-2)
+        check(worst[0][1] <= leaf_tol and all_rel <= all_tol,
+              f"{label}: gradients differ: {worst}, all {all_rel}")
+        feat_dtype = recorders["weighted_gather_sum"][1].args[0].dtype
+        dfeat_dtype = recorders["weighted_gather_sum_dfeat"][1].out.dtype
+        check(feat_dtype == dfeat_dtype == dtype,
+              f"{label}: the lift took {feat_dtype} rows and gave a "
+              f"{dfeat_dtype} d-feat")
+        torch.backends.cudnn.deterministic = False
+        gk = {k: v.cpu() for k, v in gk.items()}
+        del base, batch, results, gp
+        torch.cuda.empty_cache()
+        return launches, bf16_launches, recorders, gk
+
+    predict_launches, _, k1_predict_args = predict_phases(torch.float32)
     cull = cull_check(k1_predict_args[0], k1_predict_args[2])
     emit(phase="cull", tables="predict", tiles=k1_predict_args[0].shape[0],
          k=k1_predict_args[0].shape[2], **cull)
     check_cull(cull, "predict")
-    del model, predict, scenes, preds, runs, pk, pp, lk, lp, ck
-    torch.backends.cudnn.deterministic = False
-    torch.cuda.empty_cache()
+    _, predict_bf16_launches, _ = predict_phases(bf16)
 
-    # -- train at full ScanNet width -----------------------------------
     scene = make_synthetic_scene(cfg, seed=0, n_views=cfg.data.n_src_train,
                                  n_targets=cfg.data.nerf_target_views_train)
-    state = create_train_state(
-        cfg, device="cuda", generator=torch.Generator().manual_seed(cfg.seed))
-    params0 = {k: p.detach().clone()
-               for k, p in state.model.named_parameters()}
-    step_logs = []
-    t_start = [time.perf_counter()]
-
-    def log_step(i, metrics):
-        now = time.perf_counter()
-        step_logs.append(dict(step=i, latency_ms=(now - t_start[0]) * 1e3,
-                              **metrics))
-        t_start[0] = now
-        emit(phase="train", **step_logs[-1])
-
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t_start[0] = time.perf_counter()
-    fit(state, (scene for _ in range(TRAIN_STEPS)), TRAIN_STEPS, log_every=1,
-        log_fn=log_step)
-    train_launches = {name: fn.launches for name, fn in counted.items()}
-    steady = [s["latency_ms"] for s in step_logs[1:]]
-    emit(phase="train", steps=TRAIN_STEPS, views=cfg.data.n_src_train,
-         targets=cfg.data.nerf_target_views_train, launches=train_launches,
-         first_step_ms=step_logs[0]["latency_ms"],
-         steady_step_ms=statistics.mean(steady),
-         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    for name, count in train_launches.items():
-        check(count == TRAIN_STEPS, f"{name} launched {count} times in "
-                                    f"{TRAIN_STEPS} train steps")
-    for log in step_logs:
-        check(all(np.isfinite(v) for k, v in log.items()
-                  if k not in ("step", "latency_ms")),
-              f"step {log['step']}: a loss is not finite: {log}")
-        check(log["loss_nvs"] > 0 and "cls_loss" in log,
-              f"step {log['step']}: loss terms missing: {log}")
-    moved = frozen_moved = 0
-    for name, p in state.model.named_parameters():
-        changed = not torch.equal(p.detach(), params0[name])
-        if name.startswith(("backbone.stem_", "backbone.layer1_")):
-            frozen_moved += changed
-        else:
-            moved += changed
-    emit(phase="train", parameters_moved=moved, frozen_moved=frozen_moved)
-    check(moved > 0.9 * sum(1 for n in params0 if not n.startswith(
-        ("backbone.stem_", "backbone.layer1_"))),
-        f"only {moved} trainable parameters moved")
-    check(frozen_moved == 0, f"{frozen_moved} frozen parameters moved")
-    del state, params0
-
-    # -- one step with the kernels, then with the plain versions --------
-    torch.backends.cudnn.deterministic = True
-    base = create_train_state(
-        cfg, device="cuda", generator=torch.Generator().manual_seed(cfg.seed))
-    batch = {k: torch.as_tensor(v).cuda() for k, v in scene.items()}
-    recorders = {}
-    results = {}
-    for label in ("kernel", "plain"):
-        model = copy.deepcopy(base.model)
-        if label == "kernel":
-            rec = recorders = {
-                "composite_tiles": (splat_tiles, Recorder(composite_tiles)),
-                "composite_tiles_bwd": (splat_kernel,
-                                        Recorder(composite_tiles_bwd)),
-                "weighted_gather_sum": (voxel_lift,
-                                        Recorder(weighted_gather_sum)),
-                "weighted_gather_sum_dfeat": (
-                    lift_kernel, Recorder(weighted_gather_sum_dfeat)),
-                "weighted_gather_sum_dweight": (
-                    lift_kernel, Recorder(weighted_gather_sum_dweight))}
-        else:
-            rec = {"composite_tiles": (splat_tiles, Recorder(
-                       composite_tiles_reference)),
-                   "weighted_gather_sum": (voxel_lift, Recorder(
-                       weighted_gather_sum_reference))}
-        patches = [mock.patch.object(mod, name, r)
-                   for name, (mod, r) in rec.items()]
-        for p in patches:
-            p.start()
-        try:
-            total, aux = model.loss(batch)
-            total.backward()
-        finally:
-            for p in patches:
-                p.stop()
-        results[label] = ({k: v.item() for k, v in aux.items()},
-                          {k: p.grad for k, p in model.named_parameters()
-                           if p.grad is not None})
-        del model, total, aux
-    (lk_, gk), (lp_, gp) = results["kernel"], results["plain"]
-    loss_rel = {k: abs(lk_[k] - lp_[k]) / max(abs(lp_[k]), 1e-30)
-                for k in lp_}
-    check(set(gk) == set(gp), "the two runs give gradients to different "
-                              "parameters")
-    grad_rel = {k: (torch.linalg.vector_norm(gk[k] - gp[k])
-                    / torch.linalg.vector_norm(gp[k]).clamp_min(1e-30)).item()
-                for k in gp}
-    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:5]
-    emit(phase="train_vs_plain", loss_rel_err=loss_rel,
-         max_grad_rel_err=worst[0][1], worst_grads=worst,
-         n_grads=len(grad_rel))
-    check(max(loss_rel.values()) <= 1e-5, f"loss terms differ: {loss_rel}")
-    check(worst[0][1] <= 1e-4, f"gradients differ: {worst}")
-    torch.backends.cudnn.deterministic = False
-    del base, batch, results, gk, gp
+    train_launches, _, recorders, grads32 = train_phases(torch.float32, scene)
+    _, train_bf16_launches, recorders_bf16, _ = train_phases(bf16, scene,
+                                                             grads32)
+    del grads32
 
     # -- kernels line ----------------------------------------------------
     args = {name: detached(r.args) for name, (_, r) in recorders.items()}
@@ -957,10 +1159,106 @@ def main(argv=None) -> int:
                             "row keys",
              shape=lift_shape),
     ]
+
+    # the bf16 variants, on the inputs the bf16 step gave them
+    bf16 = torch.bfloat16
+    args16 = {name: detached(r.args) for name, (_, r) in recorders_bf16.items()}
+    k3b_args = args16["weighted_gather_sum"]
+    (pix4b, w4b, g4b, hw4b), rows4b = (args16["weighted_gather_sum_dfeat"][:4],
+                                       args16["weighted_gather_sum_dfeat"][4])
+    k4b_args = (pix4b, w4b, g4b, hw4b, None, bf16)
+    k5b_args = args16["weighted_gather_sum_dweight"][:3]
+    feat3b, pix3b, w3b = k3b_args
+    feat5b = k5b_args[0]
+    check(feat3b.dtype == feat5b.dtype == bf16,
+          "the bf16 step's lift took other than bf16 rows")
+    k3b_got = weighted_gather_sum(*k3b_args)
+    k3b_ref = weighted_gather_sum_reference(*k3b_args)
+    k3b_err = (k3b_got - k3b_ref).abs().max().item()
+    k4b_got = weighted_gather_sum_dfeat(*k4b_args)
+    k4b_in_order = torch.equal(
+        k4b_got, weighted_gather_sum_dfeat_rows_reference(rows4b, w4b, g4b,
+                                                          hw4b, bf16))
+    k4b_ref = weighted_gather_sum_dfeat_reference(pix4b, w4b, g4b, hw4b)
+    k4b_err = (k4b_got.float() - k4b_ref).abs().max().item()
+    k4b_share = bf16_rounding_share(k4b_got, k4b_ref)
+    k5b_ref = weighted_gather_sum_dweight_reference(*k5b_args)
+    k5b_err = (weighted_gather_sum_dweight(*k5b_args) - k5b_ref).abs().max() \
+        .item()
+    check(k3b_err <= 1e-5 * k3b_ref.abs().max().item(),
+          f"bf16 K3 on train inputs: {k3b_err}")
+    check(k4b_in_order, "bf16 K4 on train inputs differs from its plain "
+                        "version in its own order")
+    check(k4b_share <= 1, f"bf16 K4 on train inputs is {k4b_share} bf16 "
+                          f"ulps from its float32 plain version")
+    check(k5b_err <= 1e-5 * k5b_ref.abs().max().item(),
+          f"bf16 K5 on train inputs: {k5b_err}")
+    del k3b_got, k3b_ref, k4b_got, k4b_ref, k5b_ref
+    backward_b_ms = cuda_ms(lift_backward_fn(weighted_gather_sum, feat5b,
+                                             pix4b, w4b, g4b),
+                            reps=BACKWARD_REPS)
+    k3b_b, k3b_by = k3_bound(*k3b_args)
+    k4b_b, k4b_by = k4_bound(pix4b, w4b, g4b, hw4b, out_bytes=2)
+    k5b_b, k5b_by = k5_bound(*k5b_args)
+    lift_shape_b = dict(lift_shape, nonzero_weights=int((w4b != 0).sum()),
+                        selected_rows=selected_rows(k5b_args[1], hw4b))
+    kernels += [
+        dict(name="weighted_gather_sum_bf16", route="cuda",
+             source="mvsdet_torch/ops/csrc/weighted_gather_sum.cu",
+             replaces="mvsdet_tpu/ops/pallas/lift_kernel.py:41",
+             launches=train_bf16_launches["weighted_gather_sum"],
+             predict_launches=predict_bf16_launches["weighted_gather_sum"],
+             max_abs_err=k3b_err,
+             ms=cuda_ms(lambda: weighted_gather_sum(*k3b_args)),
+             host_paced_ms=cuda_ms(lambda: weighted_gather_sum(*k3b_args),
+                                   queued=False),
+             plain_ms=cuda_ms(lambda: weighted_gather_sum_reference(
+                 *k3b_args), reps=3),
+             bound_ms=k3b_b, bound_by=k3b_by,
+             library_ms=cuda_ms(embedding_bag_fn(*k3b_args)),
+             library_covers="embedding_bag of bf16 rows with bf16 weights, "
+                            "summed into bf16",
+             shape=dict(n=feat3b.shape[0], hw=feat3b.shape[1],
+                        c=feat3b.shape[2], v=pix3b.shape[1],
+                        nonzero_weights=int((w3b != 0).sum()))),
+        dict(name="weighted_gather_sum_dfeat_bf16", route="cuda",
+             source="mvsdet_torch/ops/csrc/weighted_gather_sum_bwd.cu",
+             replaces="mvsdet_tpu/ops/pallas/lift_kernel.py:62",
+             launches=train_bf16_launches["weighted_gather_sum_dfeat"],
+             max_abs_err=k4b_err, rounding_share=k4b_share,
+             ms=cuda_ms(lambda: weighted_gather_sum_dfeat(*k4b_args)),
+             host_paced_ms=cuda_ms(
+                 lambda: weighted_gather_sum_dfeat(*k4b_args), queued=False),
+             plain_ms=cuda_ms(lambda: weighted_gather_sum_dfeat_reference(
+                 pix4b, w4b, g4b, hw4b, bf16), reps=3),
+             bound_ms=k4b_b, bound_by=k4b_by, library_ms=None,
+             library_covers="none: embedding_bag has no bf16 backward for "
+                            "per-sample weights on CUDA",
+             backward_ms=backward_b_ms, equals_rows_reference=k4b_in_order,
+             shape=lift_shape_b),
+        dict(name="weighted_gather_sum_dweight_bf16", route="cuda",
+             source="mvsdet_torch/ops/csrc/weighted_gather_sum_bwd.cu",
+             replaces="mvsdet_tpu/ops/pallas/lift_kernel.py:82",
+             launches=train_bf16_launches["weighted_gather_sum_dweight"],
+             max_abs_err=k5b_err,
+             ms=cuda_ms(lambda: weighted_gather_sum_dweight(*k5b_args)),
+             host_paced_ms=cuda_ms(
+                 lambda: weighted_gather_sum_dweight(*k5b_args), queued=False),
+             plain_ms=cuda_ms(lambda: weighted_gather_sum_dweight_reference(
+                 *k5b_args), reps=3),
+             bound_ms=k5b_b, bound_by=k5b_by, library_ms=None,
+             library_covers="none: embedding_bag has no bf16 backward for "
+                            "per-sample weights on CUDA",
+             backward_ms=backward_b_ms,
+             feature_row_loads=k5_row_loads(weighted_gather_sum_dweight,
+                                            *k5b_args, rows4b),
+             pairs=k5b_args[1].numel(), shape=lift_shape_b),
+    ]
     if opts.save_kernel_inputs:
         torch.save({"k1": k1_args, "k2": k2_args,
                     "k1_predict": k1_predict_args, "k4": k4_args,
-                    "k5": k5_args}, opts.save_kernel_inputs)
+                    "k5": k5_args, "k3_bf16": k3b_args, "k4_bf16": k4b_args,
+                    "k5_bf16": k5b_args}, opts.save_kernel_inputs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,8 @@ def make_predict_fn(model: MVSDet, device="cuda"
     asks for the CPU (raises when CUDA is missing).  Each batch is copied
     there, predicted under `torch.inference_mode`, and the outputs (boxes,
     scores, labels, mask, rendered, depth_expect) are copied back, which
-    waits for the device.
+    waits for the device.  A bf16 model's scores come back as float32,
+    which holds every bf16 value exactly (numpy has no bfloat16).
     """
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -33,6 +34,7 @@ def make_predict_fn(model: MVSDet, device="cuda"
                    for k, v in batch.items()}
         with torch.inference_mode():
             out = model.predict(tensors)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        return {k: (v.to(torch.float32) if v.dtype == torch.bfloat16
+                    else v).cpu().numpy() for k, v in out.items()}
 
     return predict

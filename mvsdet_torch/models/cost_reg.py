@@ -11,22 +11,23 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from mvsdet_torch.models.layers import ConvBnReLU, DeconvBnReLU
+from mvsdet_torch.models.layers import Conv3d, ConvBnReLU, DeconvBnReLU
 
 
 class CostRegNet(nn.Module):
     def __init__(self, in_channels: int = 256, base: int = 64,
-                 norm: str = "group"):
+                 norm: str = "group", dtype: torch.dtype = torch.float32):
         super().__init__()
         b = base
-        self.conv0 = ConvBnReLU(in_channels, b, norm=norm)
-        self.conv1 = ConvBnReLU(b, b * 2, stride=2, norm=norm)
-        self.conv2 = ConvBnReLU(b * 2, b * 2, norm=norm)
-        self.conv3 = ConvBnReLU(b * 2, b * 4, stride=2, norm=norm)
-        self.conv4 = ConvBnReLU(b * 4, b * 4, norm=norm)
-        self.conv9 = DeconvBnReLU(b * 4, b * 2, norm=norm)
-        self.conv11 = DeconvBnReLU(b * 2, b, norm=norm)
-        self.prob = nn.Conv3d(b, 2, 3, padding=1)
+        kw = dict(norm=norm, dtype=dtype)
+        self.conv0 = ConvBnReLU(in_channels, b, **kw)
+        self.conv1 = ConvBnReLU(b, b * 2, stride=2, **kw)
+        self.conv2 = ConvBnReLU(b * 2, b * 2, **kw)
+        self.conv3 = ConvBnReLU(b * 2, b * 4, stride=2, **kw)
+        self.conv4 = ConvBnReLU(b * 4, b * 4, **kw)
+        self.conv9 = DeconvBnReLU(b * 4, b * 2, **kw)
+        self.conv11 = DeconvBnReLU(b * 2, b, **kw)
+        self.prob = Conv3d(b, 2, 3, padding=1, dtype=dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         conv0 = self.conv0(x, train)

@@ -13,18 +13,20 @@ from typing import Sequence, Tuple
 import torch
 from torch import nn
 
+from mvsdet_torch.models.layers import Conv2d
 from mvsdet_torch.ops.sampling import nearest_resize
 
 
 class FPN(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (256, 512, 1024, 2048),
-                 out_channels: int = 256):
+                 out_channels: int = 256, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_levels = len(in_channels)
         for i, c in enumerate(in_channels):
-            self.add_module(f"lateral{i}", nn.Conv2d(c, out_channels, 1))
-            self.add_module(f"out{i}", nn.Conv2d(out_channels, out_channels,
-                                                 3, padding=1))
+            self.add_module(f"lateral{i}",
+                            Conv2d(c, out_channels, 1, dtype=dtype))
+            self.add_module(f"out{i}", Conv2d(out_channels, out_channels, 3,
+                                              padding=1, dtype=dtype))
 
     def forward(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         laterals = [getattr(self, f"lateral{i}")(x)

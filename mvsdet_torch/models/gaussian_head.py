@@ -15,6 +15,7 @@ from mvsdet_torch.config import GaussianAdapterConfig
 from mvsdet_torch.geometry.rays import get_world_rays
 from mvsdet_torch.geometry.sh import rotate_sh
 from mvsdet_torch.geometry.transforms import build_covariance
+from mvsdet_torch.models.layers import Linear, sigmoid
 from mvsdet_torch.utils.precision import feinsum
 
 
@@ -29,11 +30,13 @@ class Gaussians:
 
 
 class ToGaussians(nn.Module):
-    """ReLU -> Linear to raw gaussian parameters (mvsdet.py:210-216)."""
+    """ReLU -> Linear to raw gaussian parameters (mvsdet.py:210-216), the
+    Linear computing in ``dtype``."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.proj = nn.Linear(in_features, out_features)
+        self.proj = Linear(in_features, out_features, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.proj(torch.relu(x))
@@ -72,20 +75,24 @@ def adapt_gaussians(c2w: torch.Tensor, intrinsics: torch.Tensor,
       3 * d_sh SH; image_shape: (h, w) of the feature grid.
 
     Returns:
-      Gaussians with leading shape (V, R).
+      Gaussians with leading shape (V, R), float32 whatever raw's dtype:
+      the float32 depths, SH mask and c2w promote every output, as in the
+      JAX package (the compositor takes float32 tables).
     """
     h, w = image_shape
     scales, rotations, sh = torch.split(raw, [3, 4, raw.shape[-1] - 7],
                                         dim=-1)
     s_min, s_max = cfg.gaussian_scale_min, cfg.gaussian_scale_max
-    scales = s_min + (s_max - s_min) * torch.sigmoid(scales)
+    scales = s_min + (s_max - s_min) * sigmoid(scales)
     pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=torch.float32,
                               device=raw.device)
     mult = scale_multiplier(intrinsics, pixel_size)           # (V,)
     scales = scales * depths[..., None] * mult[:, None, None]
 
-    rotations = rotations / (torch.linalg.norm(rotations, dim=-1,
-                                               keepdim=True) + eps)
+    # the norm as jnp.linalg.norm takes it: in bf16 the squares are
+    # rounded before their float32 sum, which torch.linalg.norm skips
+    rotations = rotations / (torch.sqrt(torch.sum(
+        rotations * rotations, dim=-1, keepdim=True)) + eps)
     sh = sh.reshape(sh.shape[:-1] + (3, cfg.d_sh)) * sh_mask(cfg, raw.device)
 
     cov = build_covariance(scales, rotations)                 # (V, R, 3, 3)

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from mvsdet_torch.config import HeadConfig
+from mvsdet_torch.models.layers import Conv3d, sigmoid, softplus
 from mvsdet_torch.ops.nms import aligned_3d_nms, corner_to_center
 
 
@@ -27,25 +28,32 @@ class DetectionHead(nn.Module):
 
     Input: levels (1, C, nx, ny, nz).  Output per level: center (V, 1)
     logits, bbox (V, n_reg) distances (exp of the per-level scaled
-    output), cls (V, n_classes) logits.
+    output), cls (V, n_classes) logits.  center and cls come out in the
+    compute ``dtype``, bbox in float32: the float32 per-level scale
+    promotes the JAX module's product (mvsdet_tpu/models/head.py:66), where
+    torch would keep a 0-dim scale's product in bf16 (ROADMAP trap T16).
     """
 
-    def __init__(self, cfg: HeadConfig, in_channels: int = 128):
+    def __init__(self, cfg: HeadConfig, in_channels: int = 128,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.with_yaw:
             raise NotImplementedError("the rotated (ARKit) head is not "
                                       "ported yet")
-        self.conv_center = nn.Conv3d(in_channels, 1, 3, padding=1, bias=False)
-        self.conv_reg = nn.Conv3d(in_channels, cfg.n_reg_outs, 3, padding=1,
-                                  bias=False)
-        self.conv_cls = nn.Conv3d(in_channels, cfg.n_classes, 3, padding=1)
+        self.conv_center = Conv3d(in_channels, 1, 3, padding=1, bias=False,
+                                  dtype=dtype)
+        self.conv_reg = Conv3d(in_channels, cfg.n_reg_outs, 3, padding=1,
+                               bias=False, dtype=dtype)
+        self.conv_cls = Conv3d(in_channels, cfg.n_classes, 3, padding=1,
+                               dtype=dtype)
         self.scales = nn.Parameter(torch.ones(cfg.n_levels))
 
     def forward(self, levels: Sequence[torch.Tensor]):
         outs = []
         for i, x in enumerate(levels):
             center = _flat(self.conv_center(x))
-            reg = _flat(torch.exp(self.scales[i] * self.conv_reg(x)))
+            reg = self.conv_reg(x).to(self.scales.dtype)
+            reg = _flat(torch.exp(self.scales[i] * reg))
             cls = _flat(self.conv_cls(x))
             outs.append((center, reg, cls))
         return outs
@@ -127,11 +135,6 @@ def assign_targets(points: torch.Tensor, scales: torch.Tensor,
         labels_t
 
 
-def softplus(x: torch.Tensor) -> torch.Tensor:
-    """`jax.nn.softplus`: logaddexp(x, 0), with no threshold."""
-    return torch.logaddexp(x, torch.zeros_like(x))
-
-
 def sigmoid_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
                        gamma: float, alpha: float) -> torch.Tensor:
     """(P, C) logits, (P,) labels (-1 = background) -> (P,) focal loss
@@ -140,7 +143,7 @@ def sigmoid_focal_loss(logits: torch.Tensor, labels: torch.Tensor,
     c = logits.shape[-1]
     y = (labels[:, None] == torch.arange(c, device=labels.device)[None, :]) \
         .to(logits.dtype)
-    p = torch.sigmoid(logits)
+    p = sigmoid(logits)
     ce = softplus(-logits) * y + softplus(logits) * (1 - y)
     p_t = p * y + (1 - p) * (1 - y)
     alpha_t = alpha * y + (1 - alpha) * (1 - y)
@@ -189,7 +192,9 @@ def head_loss(head_outs, points_per_level: List[torch.Tensor],
     cls_labels = torch.where(valid, labels_t, -1)
     focal = sigmoid_focal_loss(cls, cls_labels, cfg.focal_gamma,
                                cfg.focal_alpha)
-    cls_loss = torch.where(valid, focal, 0.0).sum() / n_pos
+    # in bf16 the focal sum is rounded to bf16, as jnp.sum leaves it,
+    # before the float32 count promotes it
+    cls_loss = torch.where(valid, focal, 0.0).sum().to(n_pos.dtype) / n_pos
 
     bce = softplus(-center) * cness_t + softplus(center) * (1 - cness_t)
     center_loss = torch.where(pos, bce, 0.0).sum() / n_pos
@@ -218,12 +223,13 @@ def head_predict(head_outs, points_per_level: List[torch.Tensor],
                  cfg: HeadConfig) -> Dict[str, torch.Tensor]:
     """Single-scene box prediction (`_predict_by_feat_single`, :333-390).
 
-    Per level: score = sigmoid(cls) * sigmoid(center) * valid, the top
-    `nms_pre` by max score, decode; then class-aware greedy NMS.
-    Invalid voxels all score 0, and `torch.topk` orders ties otherwise
-    than JAX's top_k (ROADMAP trap T9): such boxes sit below `score_thr`
-    and are masked, and padded slots index box 0, so outputs agree with
-    the JAX package under `mask`.
+    Per level: score = sigmoid(cls) * sigmoid(center) * valid, in the
+    head's compute dtype, the top `nms_pre` by max score, decode; then
+    class-aware greedy NMS.  The top `nms_pre` are taken as JAX's top_k
+    takes them, the lower index first among equal scores, by a stable
+    descending sort: invalid voxels all score 0 (ROADMAP trap T9), and
+    bf16 scores tie often at nonzero values (T15), where `torch.topk`
+    promises no order.
 
     Returns:
       boxes (max_det, 6) centre format, scores and labels (max_det,),
@@ -232,10 +238,11 @@ def head_predict(head_outs, points_per_level: List[torch.Tensor],
     all_boxes, all_scores = [], []
     for (center, reg, cls), pts, valid in zip(head_outs, points_per_level,
                                               valid_per_level):
-        score = (torch.sigmoid(cls) * torch.sigmoid(center)
+        score = (sigmoid(cls) * sigmoid(center)
                  * valid[:, None].to(cls.dtype))
         k = min(cfg.nms_pre, score.shape[0])
-        ids = torch.topk(score.amax(dim=1), k).indices
+        ids = torch.sort(score.amax(dim=1), descending=True,
+                         stable=True).indices[:k]
         all_boxes.append(decode_bbox(pts[ids], reg[ids]))
         all_scores.append(score[ids])
     boxes = torch.cat(all_boxes)

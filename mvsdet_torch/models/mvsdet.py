@@ -17,6 +17,16 @@ rotated ARKit head, per-view intrinsics and CostRegNet's BatchNorm mode in
 training come later.  The plane sweep is the bilinear gather
 (`sweep_method="gather"` of the JAX module).  Public tensors keep the JAX
 package's channels-last layout.
+
+``dtype`` is the JAX module's compute dtype: the networks compute in it
+(bf16 is the configuration the JAX package benchmarks and trains), while
+parameters, statistics, gradients and optimizer state stay float32.
+Values go to and from it where the JAX module casts them
+(mvsdet_tpu/models/mvsdet.py:152-154, 285, 301, 330, 349): the images
+in; the features back to float32 for the sweep and the Gaussian branch
+and in the compute dtype to the lift, which returns float32; the sweep's
+variance into CostRegNet and its logits back out; the volume into the
+neck.
 """
 
 from __future__ import annotations
@@ -40,6 +50,7 @@ from mvsdet_torch.models.fpn import FPN
 from mvsdet_torch.models.gaussian_head import (Gaussians, ToGaussians,
                                                adapt_gaussians)
 from mvsdet_torch.models.head import DetectionHead, head_loss, head_predict
+from mvsdet_torch.models.layers import sigmoid
 from mvsdet_torch.models.neck3d import IndoorImVoxelNeck
 from mvsdet_torch.models.resnet import ResNet50
 from mvsdet_torch.ops.plane_sweep import plane_sweep_variance_for_refs
@@ -60,33 +71,45 @@ class MVSDet(nn.Module):
     ``sweep_remat`` recomputes each sweep chunk (plane sweep and
     CostRegNet) in backward instead of keeping its activations, the
     counterpart of `nn.remat` at mvsdet_tpu/models/mvsdet.py:157.
+    ``dtype`` is the networks' compute dtype (float32 or bfloat16).
     """
 
     def __init__(self, cfg: ModelConfig, sweep_chunk: int = 8,
-                 sweep_remat: bool = True):
+                 sweep_remat: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.gs.splat_impl != "tiled":
             raise NotImplementedError("only the tiled splatting path is "
                                       "ported")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype float32 or bfloat16, not "
+                             f"{dtype}")
         self.cfg = cfg
         self.sweep_chunk = sweep_chunk
         self.sweep_remat = sweep_remat
+        self.dtype = dtype
         c = cfg.backbone.fpn_out_channels
         self.backbone = ResNet50(depth=cfg.backbone.depth,
-                                 frozen_stages=cfg.backbone.frozen_stages)
-        self.fpn = FPN(out_channels=c)
-        self.cost_reg = CostRegNet(in_channels=c, norm=cfg.cost_reg_norm)
+                                 frozen_stages=cfg.backbone.frozen_stages,
+                                 dtype=dtype)
+        self.fpn = FPN(out_channels=c, dtype=dtype)
+        self.cost_reg = CostRegNet(in_channels=c, norm=cfg.cost_reg_norm,
+                                   dtype=dtype)
         self.neck3d = IndoorImVoxelNeck(in_channels=c,
-                                        out_channels=cfg.neck3d_out_channels)
-        self.head = DetectionHead(cfg.head, in_channels=cfg.neck3d_out_channels)
+                                        out_channels=cfg.neck3d_out_channels,
+                                        dtype=dtype)
+        self.head = DetectionHead(cfg.head, in_channels=cfg.neck3d_out_channels,
+                                  dtype=dtype)
         gs_in = c + 1 + (3 if cfg.gs.use_rgb_gaussian else 0)
         self.to_gaussians = ToGaussians(
-            gs_in, cfg.gs.num_surfaces * (2 + cfg.gs.adapter.d_in))
+            gs_in, cfg.gs.num_surfaces * (2 + cfg.gs.adapter.d_in),
+            dtype=dtype)
 
     # -- feature extraction ------------------------------------------------
 
     def image_features(self, images: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) images -> (N, h, w, C) FPN level 0, channels-last."""
+        """(N, H, W, 3) images -> (N, h, w, C) FPN level 0, channels-last,
+        in the compute dtype."""
         feats = self.backbone(images.permute(0, 3, 1, 2).contiguous())
         return self.fpn(feats)[0].permute(0, 2, 3, 1).contiguous()
 
@@ -98,8 +121,10 @@ class MVSDet(nn.Module):
         `torch.utils.checkpoint`: only its inputs are kept, and backward
         runs its forward again.
 
-        Returns (prob, off), both (N, D, h, w): prob softmaxed over D,
-        off sigmoided (mvsdet.py:470-475).
+        Returns (prob, off), both (N, D, h, w) float32: prob softmaxed
+        over D, off sigmoided (mvsdet.py:470-475).  The float32 variance
+        goes into CostRegNet in the compute dtype and its logits come back
+        to float32 before the softmax and the sigmoid.
         """
         mc = self.cfg
         if mc.cost_reg_norm == "batch" and train:
@@ -120,9 +145,10 @@ class MVSDet(nn.Module):
         def step(ref_ids):
             var = plane_sweep_variance_for_refs(
                 features, proj44, ref_ids, neighbor_ids[ref_ids], depths)
-            out = self.cost_reg(var.permute(0, 4, 1, 2, 3).contiguous(),
-                                train)
-            return torch.softmax(out[:, 0], dim=1), torch.sigmoid(out[:, 1])
+            out = self.cost_reg(
+                var.to(self.dtype).permute(0, 4, 1, 2, 3).contiguous(), train)
+            out = out.to(torch.float32)
+            return torch.softmax(out[:, 0], dim=1), sigmoid(out[:, 1])
 
         remat = self.sweep_remat and torch.is_grad_enabled()
         probs, offs = [], []
@@ -176,7 +202,7 @@ class MVSDet(nn.Module):
             rgb = bilinear_resize(denorm_images[sel], (h, w))  # (S, h, w, 3)
             gs_feat.append(rgb.reshape(s, h * w, 3))
         raw = self.to_gaussians(torch.cat(gs_feat, dim=-1))   # (S, hw, 2+d_in)
-        offset_xy = torch.sigmoid(raw[..., :2])
+        offset_xy = sigmoid(raw[..., :2])
 
         xy, _ = sample_image_grid((h, w), device=dev)
         pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=torch.float32,
@@ -216,7 +242,8 @@ class MVSDet(nn.Module):
             raise NotImplementedError("per-view intrinsics (ARKit) are not "
                                       "ported yet")
         mc = self.cfg
-        feats = self.image_features(batch["images"].to(torch.float32))
+        feats = self.image_features(batch["images"].to(self.dtype))
+        feats = feats.to(torch.float32)     # the sweep's and the splats'
         n = feats.shape[0]
 
         feat_intrinsic = scale_intrinsics(batch["intrinsic"],
@@ -232,12 +259,15 @@ class MVSDet(nn.Module):
 
         points = voxel_points(mc.n_voxels, mc.voxel_size,
                               batch["origin"]).reshape(3, -1).T  # (V, 3)
+        # the lift gathers rows in the compute dtype (lossless: they are
+        # the FPN's own values) and accumulates in float32
         vol_sum, valid_cnt = lift_features_to_voxels(
-            feats, proj44[:, :3, :4], est_depth, est_prob, points,
-            mc.voxel_size[2])
+            feats.to(self.dtype), proj44[:, :3, :4], est_depth, est_prob,
+            points, mc.voxel_size[2])
         volume = finalize_volume(vol_sum, valid_cnt)          # (V, C)
         nx, ny, nz = mc.n_voxels
-        volume = volume.reshape(nx, ny, nz, -1).permute(3, 0, 1, 2)[None]
+        volume = volume.to(self.dtype).reshape(nx, ny, nz, -1) \
+            .permute(3, 0, 1, 2)[None]
         levels = self.neck3d(volume.contiguous(), train)
 
         gaussians = None
@@ -356,9 +386,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: Config, device="cuda",
-                generator: Optional[torch.Generator] = None) -> MVSDet:
-    """An eval-mode `MVSDet` for ``cfg`` with random weights from
-    ``generator`` (default: seeded with ``cfg.seed``), on ``device``.
+                generator: Optional[torch.Generator] = None,
+                dtype: torch.dtype = torch.float32) -> MVSDet:
+    """An eval-mode `MVSDet` for ``cfg`` computing in ``dtype``, with random
+    float32 weights from ``generator`` (default: seeded with
+    ``cfg.seed``), on ``device``.
 
     Runs on the card unless the caller asks for the CPU; raises when CUDA
     is missing and ``device="cpu"`` was not asked for.
@@ -367,7 +399,7 @@ def build_model(cfg: Config, device="cuda",
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the port runs on the "
                            "card; pass device='cpu' to run it on the CPU")
-    model = MVSDet(cfg.model)
+    model = MVSDet(cfg.model, dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

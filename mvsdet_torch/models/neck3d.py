@@ -21,14 +21,17 @@ from mvsdet_torch.models.layers import ConvBnReLU, DeconvBnReLU
 class ResModule3D(nn.Module):
     """3D residual block (imvoxel_neck.py:173-220)."""
 
-    def __init__(self, in_channels: int, features: int, stride: int = 1):
+    def __init__(self, in_channels: int, features: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = ConvBnReLU(in_channels, features, stride=stride)
-        self.conv2 = ConvBnReLU(features, features, relu=False)
+        self.conv1 = ConvBnReLU(in_channels, features, stride=stride,
+                                dtype=dtype)
+        self.conv2 = ConvBnReLU(features, features, relu=False, dtype=dtype)
         self.has_downsample = stride != 1 or in_channels != features
         if self.has_downsample:
             self.downsample = ConvBnReLU(in_channels, features, kernel=1,
-                                         stride=stride, relu=False)
+                                         stride=stride, relu=False,
+                                         dtype=dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         y = self.conv2(self.conv1(x, train), train)
@@ -39,7 +42,8 @@ class ResModule3D(nn.Module):
 
 class IndoorImVoxelNeck(nn.Module):
     def __init__(self, in_channels: int = 256, out_channels: int = 128,
-                 n_blocks: Sequence[int] = (1, 1, 1)):
+                 n_blocks: Sequence[int] = (1, 1, 1),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_blocks = tuple(n_blocks)
         n_scales = len(n_blocks)
@@ -53,17 +57,19 @@ class IndoorImVoxelNeck(nn.Module):
             for b in range(n_blocks[i]):
                 self.add_module(f"down{i}_block{b}",
                                 ResModule3D(in_ch, n_ch,
-                                            stride if b == 0 else 1))
+                                            stride if b == 0 else 1, dtype))
                 in_ch = n_ch
             chans.append(n_ch)
         for i in range(n_scales - 1, -1, -1):
             if i < n_scales - 1:
                 c = chans[i + 1]
                 self.add_module(f"up{i + 1}_deconv",
-                                DeconvBnReLU(c, c // 2, kernel=2))
+                                DeconvBnReLU(c, c // 2, kernel=2,
+                                             dtype=dtype))
                 self.add_module(f"up{i + 1}_conv",
-                                ConvBnReLU(c // 2, c // 2))
-            self.add_module(f"out{i}", ConvBnReLU(chans[i], out_channels))
+                                ConvBnReLU(c // 2, c // 2, dtype=dtype))
+            self.add_module(f"out{i}", ConvBnReLU(chans[i], out_channels,
+                                                  dtype=dtype))
 
     def forward(self, x: torch.Tensor,
                 train: bool = False) -> List[torch.Tensor]:

@@ -16,7 +16,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from mvsdet_torch.models.layers import FrozenBatchNorm
+from mvsdet_torch.models.layers import Conv2d, FrozenBatchNorm
 
 STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 
@@ -24,20 +24,22 @@ STAGE_BLOCKS = {50: (3, 4, 6, 3), 101: (3, 4, 23, 3)}
 class Bottleneck(nn.Module):
     """1x1 -> 3x3(stride) -> 1x1 bottleneck with frozen BN."""
 
-    def __init__(self, in_channels: int, width: int, stride: int = 1):
+    def __init__(self, in_channels: int, width: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         out_ch = width * 4
-        self.conv1 = nn.Conv2d(in_channels, width, 1, bias=False)
-        self.bn1 = FrozenBatchNorm(width)
-        self.conv2 = nn.Conv2d(width, width, 3, stride, padding=1, bias=False)
-        self.bn2 = FrozenBatchNorm(width)
-        self.conv3 = nn.Conv2d(width, out_ch, 1, bias=False)
-        self.bn3 = FrozenBatchNorm(out_ch)
+        self.conv1 = Conv2d(in_channels, width, 1, bias=False, dtype=dtype)
+        self.bn1 = FrozenBatchNorm(width, dtype=dtype)
+        self.conv2 = Conv2d(width, width, 3, stride, padding=1, bias=False,
+                            dtype=dtype)
+        self.bn2 = FrozenBatchNorm(width, dtype=dtype)
+        self.conv3 = Conv2d(width, out_ch, 1, bias=False, dtype=dtype)
+        self.bn3 = FrozenBatchNorm(out_ch, dtype=dtype)
         self.has_downsample = in_channels != out_ch or stride != 1
         if self.has_downsample:
-            self.downsample_conv = nn.Conv2d(in_channels, out_ch, 1, stride,
-                                             bias=False)
-            self.downsample_bn = FrozenBatchNorm(out_ch)
+            self.downsample_conv = Conv2d(in_channels, out_ch, 1, stride,
+                                          bias=False, dtype=dtype)
+            self.downsample_bn = FrozenBatchNorm(out_ch, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -49,13 +51,16 @@ class Bottleneck(nn.Module):
 
 
 class ResNet50(nn.Module):
-    """Returns (C2, C3, C4, C5) from (N, 3, H, W) images."""
+    """Returns (C2, C3, C4, C5) from (N, 3, H, W) images, computed in
+    ``dtype`` (the residual adds too, as in the JAX module)."""
 
-    def __init__(self, depth: int = 50, frozen_stages: int = 1):
+    def __init__(self, depth: int = 50, frozen_stages: int = 1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.frozen_stages = frozen_stages
-        self.stem_conv = nn.Conv2d(3, 64, 7, 2, padding=3, bias=False)
-        self.stem_bn = FrozenBatchNorm(64)
+        self.stem_conv = Conv2d(3, 64, 7, 2, padding=3, bias=False,
+                                dtype=dtype)
+        self.stem_bn = FrozenBatchNorm(64, dtype=dtype)
         self.stages = []
         in_ch, width = 64, 64
         for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
@@ -63,7 +68,7 @@ class ResNet50(nn.Module):
             for b in range(n_blocks):
                 stride = 2 if (b == 0 and stage > 0) else 1
                 name = f"layer{stage + 1}_block{b}"
-                self.add_module(name, Bottleneck(in_ch, width, stride))
+                self.add_module(name, Bottleneck(in_ch, width, stride, dtype))
                 names.append(name)
                 in_ch = width * 4
             self.stages.append(names)

@@ -46,7 +46,17 @@
 // warp per pair), evict-first (__ldcs), as nothing reads it again.  Given
 // a counter, each warp adds the rows it loaded to it.  The dot keeps a
 // warp per pair's lane partition and shuffle butterfly.
+//
+// bf16 variants, for a model computing in bf16 (its lift gathers the FPN's
+// bf16 rows): K4 keeps its walk and its fp32 sums and writes each d-feat
+// row once in bf16, rounded to nearest even, as the cotangent of a bf16
+// input is bf16 in JAX; that halves its write bytes (98 MB at the step's
+// shape).  It equals the fp32 kernel's rows rounded once.  K5 reads bf16
+// feature rows, 8 bytes per 4 channels, widened exactly to fp32, with fp32
+// g and an fp32 dw: the fp32 kernel's result on the widened rows, bit for
+// bit.  The index is the same for both.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -73,6 +83,45 @@ constexpr int kDweightRun = 32;
 
 // a lane holds up to kMaxVec float4 of a row: C <= 32 * 4 * kMaxVec
 constexpr int kMaxVec = 4;
+
+// Four consecutive channels of a row, as fp32, loaded evict-first: a
+// float4, or 8 bytes of bf16 widened exactly (the bf16 bits are the fp32's
+// upper half; the lower address's value sits in a word's low half).
+template <typename T>
+__device__ __forceinline__ float4 load4_stream(const T* p);
+
+template <>
+__device__ __forceinline__ float4 load4_stream<float>(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+
+template <>
+__device__ __forceinline__ float4 load4_stream<__nv_bfloat16>(
+    const __nv_bfloat16* p) {
+  const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
+  return make_float4(__uint_as_float(u.x << 16),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+
+// Two fp32 values rounded to nearest even bf16, `lo` in the low half.
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Four fp32 sums stored evict-first at channels 4q..4q+3 of an fp32 row,
+// or of a bf16 row, each rounded once.
+__device__ __forceinline__ void store4_stream(float* row, int q, float4 v) {
+  __stcs(reinterpret_cast<float4*>(row) + q, v);
+}
+
+__device__ __forceinline__ void store4_stream(__nv_bfloat16* row, int q,
+                                              float4 v) {
+  __stcs(reinterpret_cast<uint2*>(row) + q,
+         make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w)));
+}
 
 // Exclusive sum of x over the CTA's threads in thread order; `sums` holds
 // one int per warp.  Ends with the CTA synchronised.
@@ -191,12 +240,11 @@ lift_rows_kernel(const int* __restrict__ pix, int* __restrict__ row_start,
   }
 }
 
-template <int kVec>
+template <int kVec, typename T>
 __global__ void __launch_bounds__(kWarp * kDfeatWarps)
 dfeat_kernel(const int* __restrict__ row_start, const int* __restrict__ pair,
              const float* __restrict__ weight, const float* __restrict__ g,
-             float* __restrict__ dfeat, int n_rows, int hw, int n_vox,
-             int c) {
+             T* __restrict__ dfeat, int n_rows, int hw, int n_vox, int c) {
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kDfeatWarps + threadIdx.x / kWarp;
   if (row >= n_rows) return;
@@ -243,18 +291,17 @@ dfeat_kernel(const int* __restrict__ row_start, const int* __restrict__ pair,
       }
     }
   }
-  float4* out = reinterpret_cast<float4*>(dfeat)
-                + static_cast<long long>(row) * c4;
+  T* out = dfeat + static_cast<long long>(row) * c;
 #pragma unroll
   for (int k = 0; k < kVec; ++k) {
     const int q = lane + k * kWarp;
-    if (q < c4) __stcs(out + q, acc[k]);
+    if (q < c4) store4_stream(out, q, acc[k]);
   }
 }
 
-template <int kVec>
+template <int kVec, typename T>
 __global__ void __launch_bounds__(kWarp * kDweightWarps)
-dweight_kernel(const float* __restrict__ feat, const int* __restrict__ pix,
+dweight_kernel(const T* __restrict__ feat, const int* __restrict__ pix,
                const int* __restrict__ pair, const float* __restrict__ g,
                float* __restrict__ dw, int* __restrict__ row_loads,
                int n_pairs, int hw, int n_vox, int c) {
@@ -266,7 +313,6 @@ dweight_kernel(const float* __restrict__ feat, const int* __restrict__ pix,
   const int stop = static_cast<int>(min(start + kDweightRun,
                                         static_cast<long long>(n_pairs)));
   const int c4 = c / 4;
-  const float4* feat4 = reinterpret_cast<const float4*>(feat);
   const float4* g4 = reinterpret_cast<const float4*>(g);
   int row = -1;                             // the row held in f
   int loads = 0;
@@ -289,8 +335,9 @@ dweight_kernel(const float* __restrict__ feat, const int* __restrict__ pix,
 #pragma unroll
         for (int k = 0; k < kVec; ++k) {
           const int q = lane + k * kWarp;
-          const float4* fp = feat4 + static_cast<long long>(r) * c4 + q;
-          f[k] = q < c4 ? __ldcs(fp) : make_float4(0.f, 0.f, 0.f, 0.f);
+          f[k] = q < c4 ? load4_stream(feat + static_cast<long long>(r) * c
+                                       + 4 * q)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
         }
       }
       float acc = 0.f;
@@ -321,11 +368,58 @@ unsigned blocks(long long items, long long per_block) {
   return static_cast<unsigned>((items + per_block - 1) / per_block);
 }
 
+template <typename T>
+int launch_dfeat(const int* row_start, const int* pair, const float* weight,
+                 const float* g, T* dfeat, int n, int hw, int n_vox, int c,
+                 cudaStream_t stream) {
+  const int n_rows = n * hw;
+  if (n_rows == 0 || c == 0) return 0;
+  if (c % 4 != 0 || vec_for(c) > kMaxVec)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = blocks(n_rows, kDfeatWarps);
+  const int threads = kWarp * kDfeatWarps;
+  switch (vec_for(c)) {
+    case 1: dfeat_kernel<1, T><<<grid, threads, 0, stream>>>(
+        row_start, pair, weight, g, dfeat, n_rows, hw, n_vox, c); break;
+    case 2: dfeat_kernel<2, T><<<grid, threads, 0, stream>>>(
+        row_start, pair, weight, g, dfeat, n_rows, hw, n_vox, c); break;
+    case 3: dfeat_kernel<3, T><<<grid, threads, 0, stream>>>(
+        row_start, pair, weight, g, dfeat, n_rows, hw, n_vox, c); break;
+    default: dfeat_kernel<4, T><<<grid, threads, 0, stream>>>(
+        row_start, pair, weight, g, dfeat, n_rows, hw, n_vox, c); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_dweight(const T* feat, const int* pix, const int* pair,
+                   const float* g, float* dw, int* row_loads, int n, int hw,
+                   int n_vox, int c, cudaStream_t stream) {
+  const int n_pairs = n * n_vox;
+  if (n_pairs == 0) return 0;
+  if (c % 4 != 0 || vec_for(c) > kMaxVec)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = blocks(n_pairs, kDweightRun * kDweightWarps);
+  const int threads = kWarp * kDweightWarps;
+  switch (vec_for(c)) {
+    case 0:
+    case 1: dweight_kernel<1, T><<<grid, threads, 0, stream>>>(
+        feat, pix, pair, g, dw, row_loads, n_pairs, hw, n_vox, c); break;
+    case 2: dweight_kernel<2, T><<<grid, threads, 0, stream>>>(
+        feat, pix, pair, g, dw, row_loads, n_pairs, hw, n_vox, c); break;
+    case 3: dweight_kernel<3, T><<<grid, threads, 0, stream>>>(
+        feat, pix, pair, g, dw, row_loads, n_pairs, hw, n_vox, c); break;
+    default: dweight_kernel<4, T><<<grid, threads, 0, stream>>>(
+        feat, pix, pair, g, dw, row_loads, n_pairs, hw, n_vox, c); break;
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Each returns the launch's cudaError_t (0 on success).  N HW and N V must
 // fit in an int, every pix in [0, HW); C must be a multiple of 4, at most
-// 32 * 4 * kMaxVec = 512, and every float pointer 16-byte aligned.
+// 32 * 4 * kMaxVec = 512, and every pointer 16-byte aligned.
 
 // row_start (N HW + 1) and pair (N V) of `pix`, written whole.
 extern "C" int lift_rows(const int* pix, int* row_start, int* pair, int n,
@@ -344,55 +438,42 @@ extern "C" int lift_rows(const int* pix, int* row_start, int* pair, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dfeat (N HW, C), every row written, from the index of `lift_rows`.
+// dfeat (N HW, C), every row written, from the index of `lift_rows`: fp32,
+// or the same sums rounded to bf16.
 extern "C" int weighted_gather_sum_dfeat(const int* row_start,
                                          const int* pair, const float* weight,
                                          const float* g, float* dfeat, int n,
                                          int hw, int n_vox, int c,
                                          cudaStream_t stream) {
-  const int n_rows = n * hw;
-  if (n_rows == 0 || c == 0) return 0;
-  if (c % 4 != 0 || vec_for(c) > kMaxVec)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = blocks(n_rows, kDfeatWarps);
-  const int threads = kWarp * kDfeatWarps;
-  switch (vec_for(c)) {
-    case 1: dfeat_kernel<1><<<grid, threads, 0, stream>>>(
-        row_start, pair, weight, g, dfeat, n_rows, hw, n_vox, c); break;
-    case 2: dfeat_kernel<2><<<grid, threads, 0, stream>>>(
-        row_start, pair, weight, g, dfeat, n_rows, hw, n_vox, c); break;
-    case 3: dfeat_kernel<3><<<grid, threads, 0, stream>>>(
-        row_start, pair, weight, g, dfeat, n_rows, hw, n_vox, c); break;
-    default: dfeat_kernel<4><<<grid, threads, 0, stream>>>(
-        row_start, pair, weight, g, dfeat, n_rows, hw, n_vox, c); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_dfeat(row_start, pair, weight, g, dfeat, n, hw, n_vox, c,
+                      stream);
+}
+
+extern "C" int weighted_gather_sum_dfeat_bf16(
+    const int* row_start, const int* pair, const float* weight,
+    const float* g, __nv_bfloat16* dfeat, int n, int hw, int n_vox, int c,
+    cudaStream_t stream) {
+  return launch_dfeat(row_start, pair, weight, g, dfeat, n, hw, n_vox, c,
+                      stream);
 }
 
 // dw (N, V), every pair, walking `pair` of `lift_rows` in runs of
-// kDweightRun entries per warp.  `row_loads` is null, or a zeroed int on
-// the card to which the launch adds the feature rows it loads.
+// kDweightRun entries per warp, from fp32 or bf16 feature rows.
+// `row_loads` is null, or a zeroed int on the card to which the launch
+// adds the feature rows it loads.
 extern "C" int weighted_gather_sum_dweight(const float* feat, const int* pix,
                                            const int* pair, const float* g,
                                            float* dw, int* row_loads, int n,
                                            int hw, int n_vox, int c,
                                            cudaStream_t stream) {
-  const int n_pairs = n * n_vox;
-  if (n_pairs == 0) return 0;
-  if (c % 4 != 0 || vec_for(c) > kMaxVec)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = blocks(n_pairs, kDweightRun * kDweightWarps);
-  const int threads = kWarp * kDweightWarps;
-  switch (vec_for(c)) {
-    case 0:
-    case 1: dweight_kernel<1><<<grid, threads, 0, stream>>>(
-        feat, pix, pair, g, dw, row_loads, n_pairs, hw, n_vox, c); break;
-    case 2: dweight_kernel<2><<<grid, threads, 0, stream>>>(
-        feat, pix, pair, g, dw, row_loads, n_pairs, hw, n_vox, c); break;
-    case 3: dweight_kernel<3><<<grid, threads, 0, stream>>>(
-        feat, pix, pair, g, dw, row_loads, n_pairs, hw, n_vox, c); break;
-    default: dweight_kernel<4><<<grid, threads, 0, stream>>>(
-        feat, pix, pair, g, dw, row_loads, n_pairs, hw, n_vox, c); break;
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_dweight(feat, pix, pair, g, dw, row_loads, n, hw, n_vox, c,
+                        stream);
+}
+
+extern "C" int weighted_gather_sum_dweight_bf16(
+    const __nv_bfloat16* feat, const int* pix, const int* pair,
+    const float* g, float* dw, int* row_loads, int n, int hw, int n_vox,
+    int c, cudaStream_t stream) {
+  return launch_dweight(feat, pix, pair, g, dw, row_loads, n, hw, n_vox, c,
+                        stream);
 }

@@ -8,6 +8,12 @@ backward builds the pairs' row index once (`lift_rows`) and hands it to
 `weighted_gather_sum_dfeat` and `weighted_gather_sum_dweight` (the kernels
 of `csrc/weighted_gather_sum_bwd.cu` on CUDA tensors, their plain versions
 on CPU tensors).  pix takes no gradient.
+
+feat may be float32 or bfloat16 (the lift of a model computing in bf16);
+weight, g and the forward's output are float32 either way, and d-feat
+takes feat's dtype, as the cotangent of a bf16 input is bf16 in JAX.  A
+bf16 feat on the card goes to the kernels' bf16 variants, each counted in
+its wrapper's `bf16_launches` as well as in `launches`.
 """
 
 from __future__ import annotations
@@ -22,12 +28,15 @@ from mvsdet_torch.ops import build
 # the backward kernels hold a row in registers, up to four float4 a lane
 MAX_BACKWARD_CHANNELS = 512
 _INT32_MAX = 2**31 - 1
+FEATURE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def weighted_gather_sum_reference(feat: torch.Tensor, pix: torch.Tensor,
                                   weight: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch gather and weighted sum, views added in order n = 0..N-1
-    as the XLA scan does (mvsdet_tpu/ops/voxel_lift.py:136-151)."""
+    as the XLA scan does (mvsdet_tpu/ops/voxel_lift.py:136-151); bf16 rows
+    widened exactly to float32 first, as the XLA lift's float32 weights
+    promote them."""
     out = torch.zeros((pix.shape[1], feat.shape[2]), dtype=torch.float32,
                       device=feat.device)
     for i in range(feat.shape[0]):
@@ -38,16 +47,18 @@ def weighted_gather_sum_reference(feat: torch.Tensor, pix: torch.Tensor,
 
 def weighted_gather_sum_dfeat_reference(pix: torch.Tensor,
                                         weight: torch.Tensor,
-                                        g: torch.Tensor,
-                                        hw: int) -> torch.Tensor:
+                                        g: torch.Tensor, hw: int,
+                                        dtype: torch.dtype = torch.float32
+                                        ) -> torch.Tensor:
     """Plain d-feat: dfeat[n, p] = sum_v [pix[n, v] = p] weight[n, v] g[v],
-    one `index_add_` per view.  Returns (N, HW, C)."""
+    one `index_add_` per view, summed in float32 and rounded once to
+    ``dtype``, feat's.  Returns (N, HW, C)."""
     n = pix.shape[0]
     dfeat = torch.zeros((n, hw, g.shape[1]), dtype=torch.float32,
                         device=g.device)
     for i in range(n):
         dfeat[i].index_add_(0, pix[i].long(), g * weight[i, :, None])
-    return dfeat
+    return dfeat.to(dtype)
 
 
 def lift_rows_reference(pix: torch.Tensor, hw: int):
@@ -65,11 +76,13 @@ def lift_rows_reference(pix: torch.Tensor, hw: int):
 
 
 def weighted_gather_sum_dfeat_rows_reference(rows, weight: torch.Tensor,
-                                             g: torch.Tensor,
-                                             hw: int) -> torch.Tensor:
-    """Plain d-feat in K4's order: each row the sum of weight[n, v] g[v]
-    over its nonzero-weight pairs in ascending v, from 0, from the index
-    `rows` of `lift_rows`.  Returns (N, HW, C)."""
+                                             g: torch.Tensor, hw: int,
+                                             dtype: torch.dtype = torch.float32
+                                             ) -> torch.Tensor:
+    """Plain d-feat in K4's order: each row the float32 sum of
+    weight[n, v] g[v] over its nonzero-weight pairs in ascending v, from 0,
+    from the index `rows` of `lift_rows`, rounded once to ``dtype``.
+    Returns (N, HW, C)."""
     row_start, pair = (t.long() for t in rows)
     n, n_vox = weight.shape
     n_rows = n * hw
@@ -86,14 +99,16 @@ def weighted_gather_sum_dfeat_rows_reference(rows, weight: torch.Tensor,
     for k in range(int(per_row.max()) if row.numel() else 0):
         at = rank == k                      # at most one pair per row
         dfeat[row[at]] = dfeat[row[at]] + g[vox[at]] * w[at, None]
-    return dfeat.reshape(n, hw, g.shape[1])
+    return dfeat.reshape(n, hw, g.shape[1]).to(dtype)
 
 
 def weighted_gather_sum_dweight_reference(feat: torch.Tensor,
                                           pix: torch.Tensor,
                                           g: torch.Tensor) -> torch.Tensor:
-    """Plain d-weight: dw[n, v] = <feat[n, pix[n, v]], g[v]>, (N, V)."""
-    return torch.stack([(feat[i].index_select(0, pix[i].long()) * g).sum(-1)
+    """Plain d-weight: dw[n, v] = <feat[n, pix[n, v]], g[v]>, (N, V)
+    float32, bf16 rows widened exactly first."""
+    return torch.stack([(feat[i].index_select(0, pix[i].long())
+                         .to(torch.float32) * g).sum(-1)
                         for i in range(feat.shape[0])])
 
 
@@ -112,34 +127,43 @@ def _check_pix(pix: torch.Tensor, n: int, device, weight=None):
         raise ValueError("feat, pix, weight and g must be on one device")
 
 
-def _check_rows(x: torch.Tensor, what: str):
-    """x holds float32 rows of C channels, C % 4 == 0 on the card."""
-    if x.dtype != torch.float32:
-        raise TypeError(f"weighted_gather_sum takes float32 {what}")
+def _check_rows(x: torch.Tensor, what: str, dtypes=(torch.float32,)):
+    """x holds rows of C channels in one of ``dtypes``, C % 4 == 0 on the
+    card (a float4, or 8 bytes of bf16, per load)."""
+    if x.dtype not in dtypes:
+        names = " or ".join(str(d).replace("torch.", "") for d in dtypes)
+        raise TypeError(f"weighted_gather_sum takes {names} {what}, not "
+                        f"{x.dtype}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"weighted_gather_sum runs on cpu or cuda, "
                          f"not {x.device}")
     if x.device.type == "cuda" and x.shape[-1] % 4:
-        raise ValueError(f"the CUDA gather loads float4 rows: "
+        raise ValueError(f"the CUDA gather loads rows 4 channels at a time: "
                          f"C={x.shape[-1]} must be a multiple of 4")
 
 
 def _check(feat, pix, weight):
     if feat.ndim != 3:
         raise ValueError(f"feat must be (N, HW, C), got {tuple(feat.shape)}")
-    _check_rows(feat, "feat")
+    _check_rows(feat, "feat", FEATURE_DTYPES)
     _check_pix(pix, feat.shape[0], feat.device, weight)
 
 
 def _aligned(*tensors: torch.Tensor):
     """Contiguous copies, each checked to start on a 16-byte boundary (the
-    kernels load float4 rows)."""
+    kernels load rows in 8- and 16-byte pieces)."""
     out = [t.contiguous() for t in tensors]
     for t in out:
         if t.data_ptr() % 16:
-            raise ValueError("the CUDA gather loads float4 rows: every "
-                             "tensor must start on a 16-byte boundary")
+            raise ValueError("the CUDA gather loads rows in 16-byte pieces: "
+                             "every tensor must start on a 16-byte boundary")
     return out
+
+
+def _count(wrapper, dtype: torch.dtype):
+    wrapper.launches += 1
+    if dtype == torch.bfloat16:
+        wrapper.bf16_launches += 1
 
 
 def _forward(feat: torch.Tensor, pix: torch.Tensor,
@@ -153,15 +177,16 @@ def _forward(feat: torch.Tensor, pix: torch.Tensor,
     n_vox = pix.shape[1]
     out = torch.empty((n_vox, c), dtype=torch.float32, device=feat.device)
     lib = _library("weighted_gather_sum")
+    fwd = (lib.weighted_gather_sum_fwd_bf16 if feat.dtype == torch.bfloat16
+           else lib.weighted_gather_sum_fwd)
     with torch.cuda.device(feat.device):
-        err = lib.weighted_gather_sum_fwd(
-            feat.data_ptr(), pix.data_ptr(), weight.data_ptr(),
-            out.data_ptr(), n, hw, n_vox, c,
-            torch.cuda.current_stream().cuda_stream)
+        err = fwd(feat.data_ptr(), pix.data_ptr(), weight.data_ptr(),
+                  out.data_ptr(), n, hw, n_vox, c,
+                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"weighted_gather_sum kernel launch failed: "
                            f"cudaError {err}")
-    weighted_gather_sum.launches += 1
+    _count(weighted_gather_sum, feat.dtype)
     return out
 
 
@@ -227,16 +252,20 @@ def lift_rows(pix: torch.Tensor, hw: int, check: bool = False):
 
 
 def weighted_gather_sum_dfeat(pix: torch.Tensor, weight: torch.Tensor,
-                              g: torch.Tensor, hw: int,
-                              rows=None) -> torch.Tensor:
-    """d-feat of `weighted_gather_sum` for the output cotangent g (V, C).
+                              g: torch.Tensor, hw: int, rows=None,
+                              dtype: torch.dtype = torch.float32
+                              ) -> torch.Tensor:
+    """d-feat of `weighted_gather_sum` for the output cotangent g (V, C), in
+    ``dtype``, feat's (float32 or bfloat16).
 
-    K4 on CUDA tensors: each (N, HW) row written once, the sum over its
-    nonzero-weight pairs in ascending v (bit-equal to
-    `weighted_gather_sum_dfeat_rows_reference`), from the index `rows` of
-    `lift_rows`, built here when None.  The plain version on CPU tensors,
-    which needs no index.  Returns (N, HW, C).
+    K4 on CUDA tensors: each (N, HW) row written once, the float32 sum
+    over its nonzero-weight pairs in ascending v, rounded once to
+    ``dtype`` (bit-equal to `weighted_gather_sum_dfeat_rows_reference`),
+    from the index `rows` of `lift_rows`, built here when None.  The plain
+    version on CPU tensors, which needs no index.  Returns (N, HW, C).
     """
+    if dtype not in FEATURE_DTYPES:
+        raise TypeError(f"d-feat is float32 or bfloat16, not {dtype}")
     _check_g(g, pix.shape[1], g.shape[-1])
     _check_pix(pix, pix.shape[0], g.device, weight)
     n, n_vox = pix.shape
@@ -244,22 +273,23 @@ def weighted_gather_sum_dfeat(pix: torch.Tensor, weight: torch.Tensor,
     if rows is not None:
         _check_index(rows, n, hw, n_vox, pix.device)
     if pix.device.type == "cpu":
-        return weighted_gather_sum_dfeat_reference(pix, weight, g, hw)
+        return weighted_gather_sum_dfeat_reference(pix, weight, g, hw, dtype)
     c = g.shape[1]
     row_start, pair = lift_rows(pix, hw) if rows is None else rows
     (g,) = _aligned(g)
     weight = weight.contiguous()
-    dfeat = torch.empty((n, hw, c), dtype=torch.float32, device=g.device)
+    dfeat = torch.empty((n, hw, c), dtype=dtype, device=g.device)
     lib = _library("weighted_gather_sum_bwd")
+    dfeat_fn = (lib.weighted_gather_sum_dfeat_bf16
+                if dtype == torch.bfloat16 else lib.weighted_gather_sum_dfeat)
     with torch.cuda.device(g.device):
-        err = lib.weighted_gather_sum_dfeat(
-            row_start.data_ptr(), pair.data_ptr(), weight.data_ptr(),
-            g.data_ptr(), dfeat.data_ptr(), n, hw, n_vox, c,
-            torch.cuda.current_stream().cuda_stream)
+        err = dfeat_fn(row_start.data_ptr(), pair.data_ptr(),
+                       weight.data_ptr(), g.data_ptr(), dfeat.data_ptr(), n,
+                       hw, n_vox, c, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"weighted_gather_sum_dfeat kernel launch failed: "
                            f"cudaError {err}")
-    weighted_gather_sum_dfeat.launches += 1
+    _count(weighted_gather_sum_dfeat, dtype)
     return dfeat
 
 
@@ -269,8 +299,8 @@ def weighted_gather_sum_dweight(feat: torch.Tensor, pix: torch.Tensor,
     """d-weight of `weighted_gather_sum` for the output cotangent g (V, C).
 
     K5 on CUDA tensors, walking the index `rows` of `lift_rows` (built
-    here when None); the plain version on CPU tensors.  Every (n, v) pair
-    is computed, zero weights included.  `row_loads`, an int32 (1,) tensor
+    here when None), from float32 or bf16 rows; the plain version on CPU
+    tensors.  Every (n, v) pair is computed, zero weights included.  `row_loads`, an int32 (1,) tensor
     on the card, takes K5's count of the feature rows it loaded, added
     on the card (CUDA only).  Returns (N, V).
     """
@@ -295,21 +325,25 @@ def weighted_gather_sum_dweight(feat: torch.Tensor, pix: torch.Tensor,
     pix = pix.contiguous()
     dw = torch.empty((n, n_vox), dtype=torch.float32, device=feat.device)
     lib = _library("weighted_gather_sum_bwd")
+    dweight_fn = (lib.weighted_gather_sum_dweight_bf16
+                  if feat.dtype == torch.bfloat16
+                  else lib.weighted_gather_sum_dweight)
     with torch.cuda.device(feat.device):
-        err = lib.weighted_gather_sum_dweight(
+        err = dweight_fn(
             feat.data_ptr(), pix.data_ptr(), pair.data_ptr(), g.data_ptr(),
             dw.data_ptr(), None if row_loads is None else row_loads.data_ptr(),
             n, hw, n_vox, c, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"weighted_gather_sum_dweight kernel launch "
                            f"failed: cudaError {err}")
-    weighted_gather_sum_dweight.launches += 1
+    _count(weighted_gather_sum_dweight, feat.dtype)
     return dw
 
 
 class _WeightedGatherSum(torch.autograd.Function):
-    """K3 forward; K4 (d-feat) and K5 (d-weight) backward, each run only
-    when its input needs a gradient, from one row index on the card."""
+    """K3 forward; K4 (d-feat, in feat's dtype) and K5 (d-weight) backward,
+    each run only when its input needs a gradient, from one row index on
+    the card."""
 
     @staticmethod
     def forward(ctx, feat, pix, weight):
@@ -324,7 +358,8 @@ class _WeightedGatherSum(torch.autograd.Function):
         rows = lift_rows(pix, hw) if pix.device.type == "cuda" else None
         dfeat = dweight = None
         if ctx.needs_input_grad[0]:
-            dfeat = weighted_gather_sum_dfeat(pix, weight, g, hw, rows)
+            dfeat = weighted_gather_sum_dfeat(pix, weight, g, hw, rows,
+                                              feat.dtype)
         if ctx.needs_input_grad[2]:
             dweight = weighted_gather_sum_dweight(feat, pix, g, rows)
         return dfeat, None, dweight
@@ -335,8 +370,8 @@ def weighted_gather_sum(feat: torch.Tensor, pix: torch.Tensor,
     """sum_n weight[n, v] * feat[n, pix[n, v], :] -> (V, C) float32.
 
     Args:
-      feat: (N, HW, C) f32 per-view flattened feature maps; C % 4 == 0 on
-        CUDA.
+      feat: (N, HW, C) f32 or bf16 per-view flattened feature maps;
+        C % 4 == 0 on CUDA.
       pix: (N, V) int32 flat pixel index per voxel, clipped to [0, HW).
       weight: (N, V) f32 per-voxel weight (0 masks the row).
 
@@ -350,17 +385,22 @@ def weighted_gather_sum(feat: torch.Tensor, pix: torch.Tensor,
     return _forward(feat, pix, weight)
 
 
-weighted_gather_sum.launches = 0
+weighted_gather_sum.launches = weighted_gather_sum.bf16_launches = 0
 weighted_gather_sum_dfeat.launches = 0
+weighted_gather_sum_dfeat.bf16_launches = 0
 weighted_gather_sum_dweight.launches = 0
+weighted_gather_sum_dweight.bf16_launches = 0
 lift_rows.launches = 0
 
 # each entry point's (pointers, ints), then the stream
 _SIGNATURES = {
-    "weighted_gather_sum": {"weighted_gather_sum_fwd": (4, 4)},
+    "weighted_gather_sum": {"weighted_gather_sum_fwd": (4, 4),
+                            "weighted_gather_sum_fwd_bf16": (4, 4)},
     "weighted_gather_sum_bwd": {"lift_rows": (3, 3),
                                 "weighted_gather_sum_dfeat": (5, 4),
-                                "weighted_gather_sum_dweight": (6, 4)},
+                                "weighted_gather_sum_dfeat_bf16": (5, 4),
+                                "weighted_gather_sum_dweight": (6, 4),
+                                "weighted_gather_sum_dweight_bf16": (6, 4)},
 }
 
 

@@ -13,7 +13,8 @@ mvsdet.py:1372-1492).  Per view i and voxel v (centre p_v):
 The per-view projection, window and weight math (`_pixel_weights`) is
 plain PyTorch over all views at once; the (V, C) feature gather goes
 through `weighted_gather_sum`, the CUDA kernel on the card.  The lift
-returns float32, the accumulator's type (ROADMAP trap T6).
+returns float32, the accumulator's type (ROADMAP trap T6), for float32
+and bf16 features alike, and d-feat in the features' dtype.
 """
 
 from __future__ import annotations
@@ -69,7 +70,8 @@ def lift_features_to_voxels(features: torch.Tensor, projections: torch.Tensor,
     """Aggregate depth-weighted per-view features into the voxel grid.
 
     Args:
-      features: (N, H, W, C) f32.
+      features: (N, H, W, C) f32, or bf16 in a model computing in bf16
+        (the rows widened exactly, the weights and sums float32).
       projections: (N, 3, 4).
       est_depth, est_prob: (N, H, W, K) top-k z-depths and probabilities
         (normalised over K here, mvsdet.py:1395-1396).

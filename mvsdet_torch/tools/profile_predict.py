@@ -1,6 +1,6 @@
 """Where one predict's time goes on the card.
 
-    python -m mvsdet_torch.tools.profile_predict
+    python -m mvsdet_torch.tools.profile_predict [--dtype bfloat16]
 
 Builds `scannet_config()` at full width with seeded random weights, runs
 a synthetic scene of 80 source views and one target through `make_predict_fn` three times to warm up, then
@@ -10,11 +10,13 @@ predict's host latency, the device's busy time (the union of its kernel
 intervals) and idle share over that latency, its device-to-host copies
 (each a host read that waits for the device), and the kernels that took
 the most device time, summed by name.  TF32 is off, as in the JAX
-predict path.
+predict path.  `--dtype bfloat16` profiles the model computing in bf16
+(its parameters stay float32).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import time
@@ -42,9 +44,19 @@ def _busy_us(intervals) -> float:
 
 
 TOP = 20
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(description: str) -> torch.dtype:
+    """The model's compute dtype from the command line's `--dtype`."""
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
+                        help="the model's compute dtype")
+    return DTYPES[parser.parse_args().dtype]
 
 
 def main() -> None:
+    dtype = compute_dtype(__doc__.split("\n")[0])
     if not torch.cuda.is_available():
         raise SystemExit("profile_predict measures the card; no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -56,7 +68,7 @@ def main() -> None:
     print(json.dumps({"device": smi}), flush=True)
     cfg = scannet_config()
     predict = make_predict_fn(build_model(
-        cfg, generator=torch.Generator().manual_seed(cfg.seed)))
+        cfg, generator=torch.Generator().manual_seed(cfg.seed), dtype=dtype))
     scene = make_synthetic_scene(cfg, seed=0, n_views=cfg.data.n_src_test,
                                  n_targets=cfg.data.nerf_target_views_test)
     warm = []
@@ -84,7 +96,8 @@ def main() -> None:
                      if name.startswith("Memcpy DtoH"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
     print(json.dumps({
-        "views": cfg.data.n_src_test, "warmup_latency_ms": warm,
+        "views": cfg.data.n_src_test, "dtype": str(dtype),
+        "warmup_latency_ms": warm,
         "latency_ms": latency_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / latency_ms,
         "kernel_ms": kernel_ms, "device_events": len(kernels),

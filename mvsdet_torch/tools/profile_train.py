@@ -1,6 +1,6 @@
 """Where one training step's time goes on the card.
 
-    python -m mvsdet_torch.tools.profile_train
+    python -m mvsdet_torch.tools.profile_train [--dtype bfloat16]
 
 Builds `scannet_config()` at full width with seeded random weights and a
 synthetic scene of 40 source views (240x320) and 2 render targets
@@ -12,7 +12,9 @@ busy time (the union of its kernel intervals) and idle share over that
 latency, its device-to-host copies, the peak memory, the time of the
 port's five kernels and the lift backward's index (K1's and K2's also by
 pass), and the kernels that took the most device time, summed by name.
-TF32 is off, as in the JAX package's float32 step.
+TF32 is off, as in the JAX package's float32 step.  `--dtype bfloat16`
+profiles the step computing in bf16 (parameters, gradients and AdamW
+state stay float32).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from torch.profiler import ProfilerActivity, profile
 from mvsdet_torch.config import scannet_config
 from mvsdet_torch.data.prefetch import stage_batch
 from mvsdet_torch.data.synthetic import make_synthetic_scene
-from mvsdet_torch.tools.profile_predict import TOP, _busy_us
+from mvsdet_torch.tools.profile_predict import TOP, _busy_us, compute_dtype
 from mvsdet_torch.training.loop import create_train_state, train_step
 
 # the port's kernels by the names nvcc gives their entry points: (kernel,
@@ -52,6 +54,7 @@ def _port_kernel(name: str):
 
 
 def main() -> None:
+    dtype = compute_dtype(__doc__.split("\n")[0])
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card; no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -63,7 +66,7 @@ def main() -> None:
     print(json.dumps({"device": smi}), flush=True)
     cfg = scannet_config()
     state = create_train_state(
-        cfg, generator=torch.Generator().manual_seed(cfg.seed))
+        cfg, generator=torch.Generator().manual_seed(cfg.seed), dtype=dtype)
     scene = make_synthetic_scene(cfg, seed=0, n_views=cfg.data.n_src_train,
                                  n_targets=cfg.data.nerf_target_views_train)
     batch = stage_batch(scene, "cuda")
@@ -100,7 +103,7 @@ def main() -> None:
     host_reads = sum(n for name, (_, n) in by_name.items()
                      if name.startswith("Memcpy DtoH"))
     print(json.dumps({
-        "views": cfg.data.n_src_train,
+        "views": cfg.data.n_src_train, "dtype": str(dtype),
         "targets": cfg.data.nerf_target_views_train,
         "warmup_step_ms": warm, "latency_ms": latency_ms,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / latency_ms,

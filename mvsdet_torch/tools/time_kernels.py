@@ -12,8 +12,10 @@ power limit), the tree, and, each queued behind a device wait (`ms`) and
 host-paced (`host_paced_ms`): K1 on the training step's and the predict's
 tables and K2 on the step's; K4 and K5 called alone (each building its
 own row index, where the tree has one); the index alone (`lift_rows`,
-where the tree has it); and one backward of the lift's autograd Function
-(`lift_backward`, whatever the tree runs there).  Run it as a script, not
+where the tree has it); one backward of the lift's autograd Function
+(`lift_backward`, whatever the tree runs there); and, where the file and
+the tree have them, the bf16 variants of K3, K4 and K5 on the bf16 step's
+inputs and one bf16 backward (`K3_bf16` ... `lift_backward_bf16`).  Run it as a script, not
 with `-m`, so that `mvsdet_torch` comes from DIR.
 """
 
@@ -64,7 +66,20 @@ def main() -> None:
             lift_kernel.weighted_gather_sum, feat, pix, weight, g)}
     if hasattr(lift_kernel, "lift_rows"):
         calls["lift_rows"] = lambda: lift_kernel.lift_rows(pix, hw)
-    reps = {"lift_backward": smoke.BACKWARD_REPS}
+    if "k5_bf16" in inputs and hasattr(lift_kernel, "FEATURE_DTYPES"):
+        pix_b, weight_b, g_b = inputs["k4_bf16"][:3]
+        calls.update({
+            "K3_bf16": lambda: lift_kernel.weighted_gather_sum(
+                *inputs["k3_bf16"]),
+            "K4_bf16": lambda: lift_kernel.weighted_gather_sum_dfeat(
+                *inputs["k4_bf16"]),
+            "K5_bf16": lambda: lift_kernel.weighted_gather_sum_dweight(
+                *inputs["k5_bf16"]),
+            "lift_backward_bf16": smoke.lift_backward_fn(
+                lift_kernel.weighted_gather_sum, inputs["k5_bf16"][0], pix_b,
+                weight_b, g_b)})
+    reps = {"lift_backward": smoke.BACKWARD_REPS,
+            "lift_backward_bf16": smoke.BACKWARD_REPS}
     times = {name: {"ms": smoke.cuda_ms(fn, reps=reps.get(name, 20)),
                     "host_paced_ms": smoke.cuda_ms(
                         fn, reps=reps.get(name, 20), queued=False)}

@@ -35,10 +35,16 @@ class TrainState:
 def create_train_state(cfg: Config, device="cuda",
                        generator: Optional[torch.Generator] = None,
                        steps_per_epoch: int = 1000, sweep_chunk: int = 8,
-                       sweep_remat: bool = True) -> TrainState:
+                       sweep_remat: bool = True,
+                       dtype: torch.dtype = torch.float32) -> TrainState:
     """A model in train mode with random weights from ``generator``
     (default: seeded with ``cfg.seed``) on ``device``, its AdamW optimizer
     and MultiStepLR scheduler, at step 0.
+
+    ``dtype`` is the model's compute dtype
+    (mvsdet_tpu/training/loop.py:37-51): bfloat16 runs the networks in
+    bf16, while the parameters, their gradients and the AdamW moments stay
+    float32.
 
     Runs on the card unless the caller asks for the CPU; raises when CUDA
     is missing and ``device="cpu"`` was not asked for.
@@ -48,7 +54,7 @@ def create_train_state(cfg: Config, device="cuda",
         raise RuntimeError("CUDA is not available: the port runs on the "
                            "card; pass device='cpu' to run it on the CPU")
     model = MVSDet(cfg.model, sweep_chunk=sweep_chunk,
-                   sweep_remat=sweep_remat)
+                   sweep_remat=sweep_remat, dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

@@ -11,6 +11,7 @@ TF32 off for the call whatever the global setting.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import torch
 
@@ -30,9 +31,14 @@ def no_tf32():
 
 
 def feinsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
-    """`torch.einsum` in full fp32 (the JAX package's Precision.HIGHEST)."""
+    """`torch.einsum` in full fp32 (the JAX package's Precision.HIGHEST),
+    the operands first promoted to one dtype as `jnp.einsum` promotes them
+    (a bf16 rotation with float32 scales gives float32; `torch.einsum`
+    would raise)."""
+    dtype = functools.reduce(torch.promote_types,
+                             (o.dtype for o in operands))
     with no_tf32():
-        return torch.einsum(equation, *operands)
+        return torch.einsum(equation, *(o.to(dtype) for o in operands))
 
 
 def fmatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -381,6 +381,138 @@ def test_gather_refuses_a_misaligned_feature_map(cuda):
                             torch.zeros(2, 5, device=cuda))
 
 
+def within_bf16_rounding(got, want):
+    """got (bf16) within one bf16 ulp of want (float32, summed in another
+    order): 2^-7 of the value, plus 1e-5 of the largest where the sums
+    cancel."""
+    got, want = got.to(torch.float32), want.to(torch.float32)
+    return bool(((got - want).abs() <= 2.0 ** -7 * want.abs()
+                 + 1e-5 * want.abs().max()).all())
+
+
+@pytest.mark.parametrize("n,hw,c,v", [(5, 40, 264, 70), (3, 12, 12, 9),
+                                      (2, 30, 516, 40)])
+def test_bf16_gather_is_bit_equal_to_plain_version(cuda, n, hw, c, v):
+    """The bf16-feature K3, 16-byte row loads (C % 8 == 0) and 8-byte ones
+    (C = 12), bit-equal to its plain version and to the float32 kernel on
+    the widened rows."""
+    rng = np.random.RandomState(c)
+    feat = torch.from_numpy(rng.rand(n, hw, c).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    pix = torch.from_numpy(rng.randint(0, hw, (n, v)).astype(np.int32)).to(
+        cuda)
+    weight = torch.from_numpy((rng.rand(n, v) * (rng.rand(n, v) < 0.6))
+                              .astype(np.float32)).to(cuda)
+    launches = (weighted_gather_sum.launches,
+                weighted_gather_sum.bf16_launches)
+    got = weighted_gather_sum(feat, pix, weight)
+    torch.cuda.synchronize()
+    assert (weighted_gather_sum.launches,
+            weighted_gather_sum.bf16_launches) == (launches[0] + 1,
+                                                   launches[1] + 1)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, weighted_gather_sum_reference(feat, pix, weight))
+    assert torch.equal(got, weighted_gather_sum(feat.float(), pix, weight))
+
+
+@pytest.mark.parametrize("kind,n,hw,c,v", LIFT_CASES)
+def test_bf16_lift_kernels_on_layouts(cuda, kind, n, hw, c, v):
+    """The bf16 variants of K4 and K5: K4's bf16 d-feat bit-equal to its
+    plain version in its own order (the float32 sum rounded once) and to
+    a second launch, within one bf16 ulp of the float32 index_add_ plain
+    version;
+    K5 on bf16 rows within 1e-5 of max |plain| and bit-equal to the
+    float32 kernel on the widened rows."""
+    feat, pix, weight, g = (torch.from_numpy(a).to(cuda)
+                            for a in lift_case(kind, n, hw, c, v))
+    bf16 = torch.bfloat16
+    feat = feat.to(bf16)
+    kernels = (weighted_gather_sum_dfeat, weighted_gather_sum_dweight)
+    before = [k.bf16_launches for k in kernels]
+    rows = lift_rows(pix, hw)
+    dfeat = weighted_gather_sum_dfeat(pix, weight, g, hw, rows, bf16)
+    dw = weighted_gather_sum_dweight(feat, pix, g, rows)
+    torch.cuda.synchronize()
+    assert [k.bf16_launches for k in kernels] == [b + 1 for b in before]
+    assert dfeat.dtype == bf16 and dw.dtype == torch.float32
+    assert torch.equal(dfeat, weighted_gather_sum_dfeat(pix, weight, g, hw,
+                                                        None, bf16))
+    assert torch.equal(dfeat, weighted_gather_sum_dfeat_rows_reference(
+        rows, weight, g, hw, bf16))
+    assert within_bf16_rounding(dfeat, weighted_gather_sum_dfeat_reference(
+        pix, weight, g, hw))
+    if kind == "zero_weight":
+        assert not dfeat.any()
+    want = weighted_gather_sum_dweight_reference(feat, pix, g)
+    assert (dw - want).abs().max() <= 1e-5 * want.abs().max()
+    assert torch.equal(dw, weighted_gather_sum_dweight(feat.float(), pix, g,
+                                                       rows))
+
+
+def test_bf16_lift_refuses_other_dtypes_and_misaligned_rows(cuda):
+    pix = torch.zeros(2, 5, dtype=torch.int32, device=cuda)
+    w = torch.zeros(2, 5, device=cuda)
+    g = torch.zeros(5, 8, device=cuda)
+    for dtype in (torch.float16, torch.float64):
+        feat = torch.zeros(2, 6, 8, dtype=dtype, device=cuda)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            weighted_gather_sum(feat, pix, w)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            weighted_gather_sum_dweight(feat, pix, g)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            weighted_gather_sum_dfeat(pix, w, g, 6, None, dtype)
+    with pytest.raises(TypeError, match="float32 g"):
+        weighted_gather_sum_dweight(torch.zeros(2, 6, 8, dtype=torch.bfloat16,
+                                                device=cuda), pix,
+                                    g.to(torch.bfloat16))
+    # rows of 6 bf16 channels do not start on 8-byte boundaries
+    odd = torch.zeros(2, 6, 6, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        weighted_gather_sum(odd, pix, w)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        weighted_gather_sum_dweight(odd, pix, torch.zeros(5, 6, device=cuda))
+    shifted = torch.zeros(2 * 6 * 8 + 1, dtype=torch.bfloat16,
+                          device=cuda)[1:].reshape(2, 6, 8)
+    with pytest.raises(ValueError, match="16-byte"):
+        weighted_gather_sum(shifted, pix, w)
+    with pytest.raises(ValueError, match="16-byte"):
+        weighted_gather_sum_dweight(shifted, pix, g)
+
+
+def test_bf16_gradients_run_the_bf16_backward_kernels(cuda):
+    """One backward of the autograd Function with bf16 rows: the bf16 K3,
+    the index, the bf16 K4 and K5, once each; a bf16 d-feat and a float32
+    d-weight, against the plain backward on the CPU (d-feat within one
+    bf16 ulp of the float32 sum: the two sum in other orders)."""
+    rng = np.random.RandomState(0)
+    feat = torch.from_numpy(rng.rand(3, 40, 16).astype(np.float32)).to(
+        torch.bfloat16)
+    pix = torch.from_numpy(rng.randint(0, 40, (3, 30)).astype(np.int32))
+    w = torch.from_numpy(rng.rand(3, 30).astype(np.float32))
+    g = torch.from_numpy(rng.randn(30, 16).astype(np.float32))
+    grads = {}
+    counted = (weighted_gather_sum, weighted_gather_sum_dfeat,
+               weighted_gather_sum_dweight)
+    for dev in ("cpu", cuda):
+        f = feat.to(dev).detach().requires_grad_(True)
+        ww = w.to(dev).detach().requires_grad_(True)
+        before = [k.bf16_launches for k in counted] + [lift_rows.launches]
+        out = weighted_gather_sum(f, pix.to(dev), ww)
+        assert out.dtype == torch.float32
+        out.backward(g.to(dev))
+        after = [k.bf16_launches for k in counted] + [lift_rows.launches]
+        assert after == ([b + 1 for b in before] if dev == cuda
+                         else before), dev
+        assert f.grad.dtype == torch.bfloat16 and ww.grad.dtype == \
+            torch.float32
+        grads[str(dev)] = (f.grad.cpu(), ww.grad.cpu())
+    (df_c, dw_c), (df_g, dw_g) = grads["cpu"], grads["cuda"]
+    want = weighted_gather_sum_dfeat_reference(pix, w, g, 40)
+    assert within_bf16_rounding(df_g, want)
+    assert within_bf16_rounding(df_c, want)
+    assert (dw_g - dw_c).abs().max() <= 1e-5 * dw_c.abs().max()
+
+
 def test_predict_on_card_matches_cpu(cuda):
     base = tiny_test_config()
     cfg = dataclasses.replace(base, model=dataclasses.replace(

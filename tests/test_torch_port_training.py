@@ -50,26 +50,17 @@ from test_torch_port_interop import narrow, random_variables
 # file as a script).
 LR = 2e-5
 STEPS = 3
-# Leaves held to 3 lr after three steps instead of 1e-5.
-# cost_reg.prob.bias[0] shifts the depth logits of every plane at once,
-# which the softmax over D cancels: its true gradient is exactly 0.  The
-# others are the 3D convolutions in which a few elements (89 of 29.4M)
-# have a gradient below rounding noise and end up past 1e-5; the script
-# run prints them.
-NOISE_LEAVES = (
-    "cost_reg.prob.bias",
-    "cost_reg.conv1.conv.weight",
-    "cost_reg.conv3.conv.weight",
-    "cost_reg.conv4.conv.weight",
-    "cost_reg.conv9.conv.weight",
-    "cost_reg.conv11.conv.weight",
-    "neck3d.down1_block0.conv1.conv.weight",
-    "neck3d.down1_block0.conv2.conv.weight",
-    "neck3d.down2_block0.conv1.conv.weight",
-    "neck3d.down2_block0.conv2.conv.weight",
-    "neck3d.down2_block0.downsample.conv.weight",
-    "neck3d.up2_deconv.conv.weight",
-)
+# After three steps every parameter and BN statistic is within 1e-5 of
+# JAX's, except a few elements whose gradient is below rounding noise:
+# Adam turns such a gradient into a step of about +-lr, so they are held
+# to 3 lr instead, and there may be at most NOISE_ELEMENTS of them among
+# the 29.4M.  Which elements they are depends on the machine and its
+# thread count (the order of the convolutions' sums), so they are counted,
+# not named: one machine gave 89 in 11 convolutions, and
+# cost_reg.prob.bias[0], whose true gradient is exactly 0 (it shifts the
+# depth logits of every plane at once, which the softmax over D cancels),
+# is always among them.  The script run prints them by leaf.
+NOISE_ELEMENTS = 1000
 
 
 def train_config(cfg):
@@ -450,14 +441,18 @@ def test_first_step_gradients_match_jax(steps):
 
 
 def test_parameters_and_statistics_match_jax_after_three_steps(steps):
-    """Every parameter and BN running statistic within 1e-5 of JAX's,
-    the named noise leaves within 3 lr."""
+    """Every parameter and BN running statistic within 1e-5 of JAX's, but
+    at most NOISE_ELEMENTS elements, each within 3 lr."""
     state = steps["state"].model.state_dict()
     lr = steps["cfg"].optim.lr
     assert any("running_var" in name for name in steps["jx_final"])
+    noisy = {}
     for name, want in steps["jx_final"].items():
-        diff = np.abs(state[name].numpy() - want).max()
-        assert diff <= (3 * lr if name in NOISE_LEAVES else 1e-5), name
+        diff = np.abs(state[name].numpy() - want)
+        assert diff.max() <= 3 * lr, (name, float(diff.max()))
+        if diff.max() > 1e-5:
+            noisy[name] = int((diff > 1e-5).sum())
+    assert sum(noisy.values()) <= NOISE_ELEMENTS, noisy
     # stem and layer1 did not move; the neck's running statistics did
     initial = steps["initial"]
     for name, value in state.items():
