@@ -23,11 +23,11 @@ Phases, each printed as one JSON line:
            <= 1e-4 of max |plain| for ddata and for dvals, and a second
            launch bit-equal to the first
   K3       the voxel-lift gather against its plain version and against
-           F.embedding_bag at N=80, HW=4800, C=256, V=25600: max error
-           <= 1e-5 of max |out|
-  K3_bf16  its bf16-feature variant on the same inputs in bf16: max error
-           <= 1e-5 of max |out|, and bit-equal to the float32 kernel on
-           the rows widened to float32
+           F.embedding_bag at N=80, HW=4800, C=256, V=25600: bit-equal to
+           the plain version and to a second launch
+  K3_bf16  its bf16-feature variant on the same inputs in bf16: bit-equal
+           to the plain version, to a second launch and to the float32
+           kernel on the rows widened to float32
   K4_K5    the gather's backward at the training shape N=40, HW=4800,
            C=256, V=25600 with 10% of the weights nonzero, pix uniform and
            clipped-heavy (55% of the pairs on 1% of the rows): the pairs'
@@ -93,13 +93,20 @@ Phases, each printed as one JSON line:
            feature rows K5 loads (`feature_row_loads`, counted on the card
            by the kernel itself); then the bf16 variants of K3, K4 and K5
            with their launches in the bf16 runs, on the inputs the bf16
-           step gave them (bounds count 2 bytes a bf16 value)
+           step gave them (bounds count 2 bytes a bf16 value); then K3
+           and its bf16 variant on the inputs the float32 and the bf16
+           predict gave them (80 views), with their launches in the
+           predict runs (`weighted_gather_sum_predict`,
+           `weighted_gather_sum_bf16_predict`).  Every K3 row is
+           bit-equal to its plain version, and each bf16 K3 row to the
+           float32 kernel on the widened rows
 
     python3 chip_smoke.py --save-kernel-inputs PATH
 
-also saves the inputs the step and the predict gave K1, K2, K4 and K5 (and
-the bf16 step K3, K4 and K5), on which `mvsdet_torch/tools/time_kernels.py`
-times those kernels of any checkout with this script's `cuda_ms`.
+also saves the inputs the step and the predict gave K1, K2, K3, K4 and K5
+(and the bf16 step and predict K3, the bf16 step K4 and K5), on which
+`mvsdet_torch/tools/time_kernels.py` times those kernels of any checkout
+with this script's `cuda_ms`.
 
 The last line is {"ok": true, "device": {...}}.  Any failed check raises,
 and the script exits non-zero without that line.  TF32 is off throughout
@@ -502,8 +509,8 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--save-kernel-inputs", metavar="PATH",
         help="also torch.save the inputs the training step and the predict "
-             "gave K1, K2, K4 and K5, and the bf16 step K3, K4 and K5 (for "
-             "mvsdet_torch/tools/time_kernels.py)")
+             "gave K1-K5, the bf16 step K3, K4 and K5 and the bf16 predict "
+             "K3 (for mvsdet_torch/tools/time_kernels.py)")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -614,24 +621,31 @@ def main(argv=None) -> int:
     weight = torch.rand(n, v, device="cuda", generator=g) \
         * (torch.rand(n, v, device="cuda", generator=g) < 0.3)
     ref = weighted_gather_sum_reference(feat, pix, weight)
-    rel = rel_err(weighted_gather_sum(feat, pix, weight), ref)
+    got = weighted_gather_sum(feat, pix, weight)
+    rel = rel_err(got, ref)
+    same = torch.equal(got, weighted_gather_sum(feat, pix, weight))
     emit(phase="K3", n=n, hw=hw, c=c, v=v, max_rel_err=rel,
+         bit_equal_relaunch=same,
          ms=cuda_ms(lambda: weighted_gather_sum(feat, pix, weight)),
          plain_ms=cuda_ms(lambda: weighted_gather_sum_reference(
              feat, pix, weight), reps=3),
          library_ms=cuda_ms(embedding_bag_fn(feat, pix, weight)))
-    check(rel <= 1e-5, f"K3: relative error {rel} > 1e-5")
+    check(rel == 0, f"K3: relative error {rel}, not bit-equal")
+    check(same, "K3: two launches differ")
     feat16 = feat.to(torch.bfloat16)
     got = weighted_gather_sum(feat16, pix, weight)
     rel = rel_err(got, weighted_gather_sum_reference(feat16, pix, weight))
+    again = torch.equal(got, weighted_gather_sum(feat16, pix, weight))
     same = torch.equal(got, weighted_gather_sum(feat16.float(), pix, weight))
     emit(phase="K3_bf16", n=n, hw=hw, c=c, v=v, max_rel_err=rel,
+         bit_equal_relaunch=again,
          equals_float32_kernel_on_widened_rows=same,
          ms=cuda_ms(lambda: weighted_gather_sum(feat16, pix, weight)),
          plain_ms=cuda_ms(lambda: weighted_gather_sum_reference(
              feat16, pix, weight), reps=3),
          library_ms=cuda_ms(embedding_bag_fn(feat16, pix, weight)))
-    check(rel <= 1e-5, f"K3 bf16: relative error {rel} > 1e-5")
+    check(rel == 0, f"K3 bf16: relative error {rel}, not bit-equal")
+    check(again, "K3 bf16: two launches differ")
     check(same, "K3 bf16 differs from the float32 kernel on the widened rows")
     del feat, feat16, pix, weight, ref, got
 
@@ -734,7 +748,7 @@ def main(argv=None) -> int:
         """N_SCENES predicts through make_predict_fn with the launch counts
         set to 0 just before and read just after, then one scene with the
         kernels against one with the plain versions.  Returns the launches
-        and the tables K1 got."""
+        and the inputs K1 and K3 got."""
         label = str(dtype).replace("torch.", "")
         model = build_model(cfg, device="cuda", dtype=dtype,
                             generator=torch.Generator().manual_seed(cfg.seed))
@@ -810,11 +824,11 @@ def main(argv=None) -> int:
                                f"{vol_rel} > 1e-5")
         check(boxes_equal, f"{label}: kept boxes or labels differ under the "
                            f"mask")
-        k1_args = detached(ck.args)
+        k1_args, k3_args = detached(ck.args), detached(lk.args)
         torch.backends.cudnn.deterministic = False
         del model, predict, scenes, preds, runs, pk, pp, lk, lp, ck
         torch.cuda.empty_cache()
-        return launches, bf16_launches, k1_args
+        return launches, bf16_launches, k1_args, k3_args
 
     def train_phases(dtype, scene, grads32=None):
         """TRAIN_STEPS steps through fit with the launch counts set to 0
@@ -982,12 +996,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         return launches, bf16_launches, recorders, gk
 
-    predict_launches, _, k1_predict_args = predict_phases(torch.float32)
+    predict_launches, _, k1_predict_args, k3_predict_args = predict_phases(
+        torch.float32)
     cull = cull_check(k1_predict_args[0], k1_predict_args[2])
     emit(phase="cull", tables="predict", tiles=k1_predict_args[0].shape[0],
          k=k1_predict_args[0].shape[2], **cull)
     check_cull(cull, "predict")
-    _, predict_bf16_launches, _ = predict_phases(bf16)
+    _, predict_bf16_launches, _, k3b_predict_args = predict_phases(bf16)
 
     scene = make_synthetic_scene(cfg, seed=0, n_views=cfg.data.n_src_train,
                                  n_targets=cfg.data.nerf_target_views_train)
@@ -1009,8 +1024,10 @@ def main(argv=None) -> int:
     k2_ref = composite_tiles_bwd_reference(*k2_args)
     k2_err = max((a - b).abs().max().item() for a, b in zip(k2_got, k2_ref))
     k2_tol = 1e-4 * max(b.abs().max().item() for b in k2_ref)
+    k3_got = weighted_gather_sum(*k3_args)
     k3_ref = weighted_gather_sum_reference(*k3_args)
-    k3_err = (weighted_gather_sum(*k3_args) - k3_ref).abs().max().item()
+    k3_err = (k3_got - k3_ref).abs().max().item()
+    k3_equal = torch.equal(k3_got, k3_ref)
     # K4 and K5 got the index the backward built: (..., rows)
     (pix4, w4, g4, hw4), rows4 = k4_args[:4], k4_args[4]
     (feat5, pix5, g5), rows5 = k5_args[:3], k5_args[3]
@@ -1031,8 +1048,8 @@ def main(argv=None) -> int:
     check_cull(cull, "train")
     check(k1_err <= 1e-4, f"K1 on train inputs: {k1_err}")
     check(k2_err <= k2_tol, f"K2 on train inputs: {k2_err} > {k2_tol}")
-    check(k3_err <= 1e-5 * k3_ref.abs().max().item(),
-          f"K3 on train inputs: {k3_err}")
+    check(k3_equal, f"K3 on train inputs is not bit-equal to its plain "
+                    f"version: {k3_err}")
     check(k4_err <= 1e-5 * k4_ref.abs().max().item(),
           f"K4 on train inputs: {k4_err}")
     check(k5_err <= 1e-5 * k5_ref.abs().max().item(),
@@ -1042,7 +1059,7 @@ def main(argv=None) -> int:
     check(rows5 is rows4, "K4 and K5 got two indexes in one backward")
     check(k4_in_order, "K4 on train inputs differs from its plain version "
                        "in its own order")
-    del k1_ref, k2_got, k2_ref, k3_ref, k4_got, k4_ref, k5_ref
+    del k1_ref, k2_got, k2_ref, k3_got, k3_ref, k4_got, k4_ref, k5_ref
 
     feat3, pix3, w3 = k3_args
     lib_bwd_ms = cuda_ms(embedding_bag_backward_fn(feat3, pix3, w3, g4))
@@ -1110,7 +1127,9 @@ def main(argv=None) -> int:
              library_ms=cuda_ms(embedding_bag_fn(*k3_args)),
              shape=dict(n=feat3.shape[0], hw=feat3.shape[1], c=feat3.shape[2],
                         v=pix3.shape[1],
-                        nonzero_weights=int((w3 != 0).sum()))),
+                        nonzero_weights=int((w3 != 0).sum()),
+                        selected_rows=selected_rows(pix3, feat3.shape[1],
+                                                    w3 != 0))),
         dict(name="weighted_gather_sum_dfeat", route="cuda",
              source="mvsdet_torch/ops/csrc/weighted_gather_sum_bwd.cu",
              replaces="mvsdet_tpu/ops/pallas/lift_kernel.py:62",
@@ -1175,6 +1194,8 @@ def main(argv=None) -> int:
     k3b_got = weighted_gather_sum(*k3b_args)
     k3b_ref = weighted_gather_sum_reference(*k3b_args)
     k3b_err = (k3b_got - k3b_ref).abs().max().item()
+    k3b_equal = torch.equal(k3b_got, k3b_ref) and torch.equal(
+        k3b_got, weighted_gather_sum(feat3b.float(), pix3b, w3b))
     k4b_got = weighted_gather_sum_dfeat(*k4b_args)
     k4b_in_order = torch.equal(
         k4b_got, weighted_gather_sum_dfeat_rows_reference(rows4b, w4b, g4b,
@@ -1185,8 +1206,9 @@ def main(argv=None) -> int:
     k5b_ref = weighted_gather_sum_dweight_reference(*k5b_args)
     k5b_err = (weighted_gather_sum_dweight(*k5b_args) - k5b_ref).abs().max() \
         .item()
-    check(k3b_err <= 1e-5 * k3b_ref.abs().max().item(),
-          f"bf16 K3 on train inputs: {k3b_err}")
+    check(k3b_equal, f"bf16 K3 on train inputs is not bit-equal to its "
+                     f"plain version and to the float32 kernel on the "
+                     f"widened rows: {k3b_err}")
     check(k4b_in_order, "bf16 K4 on train inputs differs from its plain "
                         "version in its own order")
     check(k4b_share <= 1, f"bf16 K4 on train inputs is {k4b_share} bf16 "
@@ -1220,7 +1242,9 @@ def main(argv=None) -> int:
                             "summed into bf16",
              shape=dict(n=feat3b.shape[0], hw=feat3b.shape[1],
                         c=feat3b.shape[2], v=pix3b.shape[1],
-                        nonzero_weights=int((w3b != 0).sum()))),
+                        nonzero_weights=int((w3b != 0).sum()),
+                        selected_rows=selected_rows(pix3b, feat3b.shape[1],
+                                                    w3b != 0))),
         dict(name="weighted_gather_sum_dfeat_bf16", route="cuda",
              source="mvsdet_torch/ops/csrc/weighted_gather_sum_bwd.cu",
              replaces="mvsdet_tpu/ops/pallas/lift_kernel.py:62",
@@ -1254,10 +1278,47 @@ def main(argv=None) -> int:
                                             *k5b_args, rows4b),
              pairs=k5b_args[1].numel(), shape=lift_shape_b),
     ]
+    # K3 at the predict's own inputs (80 views), float32 and bf16
+    for name, launches, args in (
+            ("weighted_gather_sum_predict",
+             predict_launches["weighted_gather_sum"], k3_predict_args),
+            ("weighted_gather_sum_bf16_predict",
+             predict_bf16_launches["weighted_gather_sum"], k3b_predict_args)):
+        feat_p, pix_p, w_p = args
+        got = weighted_gather_sum(*args)
+        ref = weighted_gather_sum_reference(*args)
+        err = (got - ref).abs().max().item()
+        equal = torch.equal(got, ref) and torch.equal(
+            got, weighted_gather_sum(feat_p.float(), pix_p, w_p))
+        check(equal, f"{name}: not bit-equal to its plain version and to the "
+                     f"float32 kernel on the widened rows: {err}")
+        del got, ref
+        b, by = k3_bound(*args)
+        nz = w_p != 0
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="mvsdet_torch/ops/csrc/weighted_gather_sum.cu",
+            replaces="mvsdet_tpu/ops/pallas/lift_kernel.py:41",
+            launches=launches, max_abs_err=err,
+            ms=cuda_ms(lambda: weighted_gather_sum(*args)),
+            host_paced_ms=cuda_ms(lambda: weighted_gather_sum(*args),
+                                  queued=False),
+            plain_ms=cuda_ms(lambda: weighted_gather_sum_reference(*args),
+                             reps=3),
+            bound_ms=b, bound_by=by,
+            library_ms=cuda_ms(embedding_bag_fn(*args)),
+            shape=dict(n=feat_p.shape[0], hw=feat_p.shape[1],
+                       c=feat_p.shape[2], v=pix_p.shape[1],
+                       dtype=str(feat_p.dtype).replace("torch.", ""),
+                       nonzero_weights=int(nz.sum()),
+                       selected_rows=selected_rows(pix_p, feat_p.shape[1],
+                                                   nz))))
     if opts.save_kernel_inputs:
         torch.save({"k1": k1_args, "k2": k2_args,
-                    "k1_predict": k1_predict_args, "k4": k4_args,
-                    "k5": k5_args, "k3_bf16": k3b_args, "k4_bf16": k4b_args,
+                    "k1_predict": k1_predict_args, "k3": k3_args,
+                    "k3_predict": k3_predict_args, "k4": k4_args,
+                    "k5": k5_args, "k3_bf16": k3b_args,
+                    "k3_bf16_predict": k3b_predict_args, "k4_bf16": k4b_args,
                     "k5_bf16": k5b_args}, opts.save_kernel_inputs)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

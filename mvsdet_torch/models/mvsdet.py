@@ -170,7 +170,11 @@ class MVSDet(nn.Module):
         interval = mc.depth_interval
         p = prob.permute(0, 2, 3, 1)                          # (N, h, w, D)
         o = off.permute(0, 2, 3, 1)
-        top_p, top_idx = torch.topk(p, mc.topk, dim=-1)
+        # the top k by a stable descending sort: jax.lax.top_k takes the
+        # lower plane first among equal probabilities, which bf16 logits
+        # make common; torch.topk promises no order (ROADMAP F1, T15)
+        top_p, top_idx = torch.sort(p, dim=-1, descending=True, stable=True)
+        top_p, top_idx = top_p[..., :mc.topk], top_idx[..., :mc.topk]
         top_off = torch.gather(o, -1, top_idx)
         est_depth = top_idx * interval + near + top_off * interval
         plane = torch.arange(p.shape[-1], device=p.device) * interval + near

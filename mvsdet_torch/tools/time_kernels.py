@@ -1,5 +1,5 @@
-"""Time the compositor and the lift backward of a checkout on the inputs a
-training step gave them.
+"""Time the compositor and the lift's kernels of a checkout on the inputs a
+training step and a predict gave them.
 
     python3 chip_smoke.py --save-kernel-inputs build/kernels.pt
     python3 mvsdet_torch/tools/time_kernels.py build/kernels.pt [--tree DIR]
@@ -10,18 +10,22 @@ checkout's `chip_smoke.cuda_ms`: the kernels of two commits are timed one
 way.  Prints one JSON line: the card (as nvidia-smi names it, with its
 power limit), the tree, and, each queued behind a device wait (`ms`) and
 host-paced (`host_paced_ms`): K1 on the training step's and the predict's
-tables and K2 on the step's; K4 and K5 called alone (each building its
-own row index, where the tree has one); the index alone (`lift_rows`,
-where the tree has it); one backward of the lift's autograd Function
-(`lift_backward`, whatever the tree runs there); and, where the file and
-the tree have them, the bf16 variants of K3, K4 and K5 on the bf16 step's
-inputs and one bf16 backward (`K3_bf16` ... `lift_backward_bf16`).  Run it as a script, not
-with `-m`, so that `mvsdet_torch` comes from DIR.
+tables and K2 on the step's; K3 on the step's and the predict's inputs
+(`K3`, `K3_predict`, where the file has them); K4 and K5 called alone
+(each building its own row index, where the tree has one); the index
+alone (`lift_rows`, where the tree has it); one backward of the lift's
+autograd Function (`lift_backward`, whatever the tree runs there); and,
+where the file and the tree have them, the bf16 variants of K3, K4 and
+K5 on the bf16 step's inputs, one bf16 backward (`K3_bf16` ...
+`lift_backward_bf16`) and the bf16 K3 on the bf16 predict's inputs
+(`K3_bf16_predict`).  Run it as a script, not with `-m`, so that
+`mvsdet_torch` comes from DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import json
 import subprocess
@@ -64,6 +68,10 @@ def main() -> None:
         "K5": lambda: lift_kernel.weighted_gather_sum_dweight(*inputs["k5"]),
         "lift_backward": smoke.lift_backward_fn(
             lift_kernel.weighted_gather_sum, feat, pix, weight, g)}
+    for key, name in (("k3", "K3"), ("k3_predict", "K3_predict")):
+        if key in inputs:
+            calls[name] = functools.partial(lift_kernel.weighted_gather_sum,
+                                            *inputs[key])
     if hasattr(lift_kernel, "lift_rows"):
         calls["lift_rows"] = lambda: lift_kernel.lift_rows(pix, hw)
     if "k5_bf16" in inputs and hasattr(lift_kernel, "FEATURE_DTYPES"):
@@ -78,6 +86,9 @@ def main() -> None:
             "lift_backward_bf16": smoke.lift_backward_fn(
                 lift_kernel.weighted_gather_sum, inputs["k5_bf16"][0], pix_b,
                 weight_b, g_b)})
+        if "k3_bf16_predict" in inputs:
+            calls["K3_bf16_predict"] = functools.partial(
+                lift_kernel.weighted_gather_sum, *inputs["k3_bf16_predict"])
     reps = {"lift_backward": smoke.BACKWARD_REPS,
             "lift_backward_bf16": smoke.BACKWARD_REPS}
     times = {name: {"ms": smoke.cuda_ms(fn, reps=reps.get(name, 20)),

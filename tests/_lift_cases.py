@@ -11,7 +11,7 @@ def lift_case(kind, n, hw, c, v, seed=0):
     first 1% of rows, as voxels outside a view clip onto its edge, and 10%
     of the weights nonzero; "single_row": every pair of a view on one row;
     "zero_weight": every weight 0; "sparse_rows": pairs only on every 50th
-    row, so most rows hold none."""
+    row, so most rows hold none; "dense": every weight nonzero."""
     rng = np.random.RandomState(seed)
     feat = rng.rand(n, hw, c).astype(np.float32)
     pix = rng.randint(0, hw, (n, v))
@@ -24,8 +24,10 @@ def lift_case(kind, n, hw, c, v, seed=0):
         pix = np.repeat(rng.randint(0, hw, (n, 1)), v, axis=1)
     elif kind == "sparse_rows":
         pix = rng.randint(0, hw // 50, (n, v)) * 50
-    weight = rng.rand(n, v) * (rng.rand(n, v) < share) \
-        * (kind != "zero_weight")
+    elif kind == "dense":
+        share = 1.0
+    weight = (rng.rand(n, v) + (kind == "dense")) \
+        * (rng.rand(n, v) < share) * (kind != "zero_weight")
     g = rng.randn(v, c)
     return (feat, pix.astype(np.int32), weight.astype(np.float32),
             g.astype(np.float32))

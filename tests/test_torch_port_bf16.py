@@ -22,6 +22,8 @@ features and depth probabilities handed to the port's lift, neck, head,
 losses and Gaussian branch.  Only the whole loss is compared free-running.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -573,6 +575,48 @@ def test_head_predict_on_jax_bf16_outputs_keeps_ties_in_order():
     top = np.sort(score)[::-1][:k]
     top = top[top > 0]
     assert len(np.unique(top)) < len(top)
+
+
+# -- the depth hypotheses on tied bf16 probabilities -------------------------
+
+def test_sample_depth_breaks_ties_as_jax():
+    """bf16 CostRegNet logits give equal depth probabilities often, and
+    `jax.lax.top_k` takes the lower plane first among them (ROADMAP F1):
+    on bf16-rounded probabilities with ties, and a pixel whose 12 planes
+    are all equal, the port's `MVSDet.sample_depth` picks the planes JAX
+    picks, in JAX's order."""
+    cfg_j, cfg_t = tiny_test_config(), port_config.tiny_test_config()
+    mc_j = dataclasses.replace(cfg_j.model, topk=3)
+    mc_t = dataclasses.replace(cfg_t.model, topk=3)
+    rng = np.random.RandomState(7)
+    logits = rng.randint(0, 4, (2, 12, 6, 8)).astype(np.float32) * 0.5
+    logits[0, :, 0, 0] = 1.5                            # 12 equal planes
+    prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    prob = np.array(f32(jnp.asarray(prob).astype(jnp.bfloat16)))
+    off = rng.rand(*prob.shape).astype(np.float32)
+    model_j = JxMVSDet(mc_j, sweep_method="gather")
+    model_t = MVSDet(mc_t)
+    near, interval = mc_t.near_far_range[0], mc_t.depth_interval
+    planes = {}
+    for name, o in (("zero offsets", np.zeros_like(off)), ("offsets", off)):
+        want = [np.asarray(x) for x in model_j.apply(
+            {}, jnp.asarray(prob), jnp.asarray(o),
+            method=JxMVSDet.sample_depth)]
+        got = [x.numpy() for x in model_t.sample_depth(
+            torch.from_numpy(prob), torch.from_numpy(o))]
+        np.testing.assert_array_equal(got[1], want[1], err_msg=name)
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-6, atol=1e-6,
+                                   err_msg=name)
+        np.testing.assert_allclose(got[2], want[2], rtol=1e-6, atol=1e-6,
+                                   err_msg=name)
+        planes[name] = [np.rint((x[0] - near) / interval).astype(int)
+                        for x in (got, want)]
+    got_planes, want_planes = planes["zero offsets"]
+    np.testing.assert_array_equal(got_planes, want_planes)
+    np.testing.assert_array_equal(want_planes[0, 0, 0], [0, 1, 2])
+    # ties decide the planes taken or their order on many pixels
+    top = np.sort(np.moveaxis(prob, 1, -1), -1)[..., ::-1][..., :4]
+    assert (top[..., 1:] == top[..., :-1]).any(-1).mean() > 0.5
 
 
 # -- the whole model ---------------------------------------------------------

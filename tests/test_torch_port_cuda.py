@@ -118,6 +118,29 @@ def test_gather_is_bit_equal_to_plain_version(cuda, n, hw, c, v):
     assert torch.equal(got, weighted_gather_sum_reference(*args))
 
 
+@pytest.mark.parametrize("kind", ["uniform", "clipped", "single_row",
+                                  "zero_weight", "sparse_rows", "dense"])
+@pytest.mark.parametrize("n", [1, 33, 40, 97])
+@pytest.mark.parametrize("c", [4, 12, 264, 512])
+def test_gather_on_layouts(cuda, kind, n, c):
+    """K3 in both dtypes on the lift's layouts: N within one 64-view
+    staging chunk and past it, V = 1001 voxels (not a multiple of the
+    4-voxel tile), C of one load a lane, of 8-byte bf16 loads, and of a
+    ragged or whole second channel block.  Bit-equal to the plain version
+    and to a second launch; bf16 bit-equal to the float32 kernel on the
+    widened rows."""
+    feat, pix, weight, _ = (torch.from_numpy(a).to(cuda) for a in
+                            lift_case(kind, n, 300, c, 1001, seed=n + c))
+    for rows in (feat, feat.to(torch.bfloat16)):
+        got = weighted_gather_sum(rows, pix, weight)
+        assert torch.equal(got, weighted_gather_sum_reference(rows, pix,
+                                                              weight))
+        assert torch.equal(got, weighted_gather_sum(rows, pix, weight))
+    assert torch.equal(got, weighted_gather_sum(rows.float(), pix, weight))
+    if kind == "zero_weight":
+        assert not got.any()
+
+
 def _backward_inputs(n_tiles, k, c, tiles_x, kind, device):
     data, vals = tables(n_tiles, k, c, tiles_x, seed=k, kind=kind)
     if kind == "culled_tile":              # clipped, but culled tiles stay so

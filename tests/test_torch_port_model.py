@@ -112,9 +112,16 @@ def test_head_predict_on_equal_inputs(runs):
         port_config.tiny_test_config().model.head)
     mask = pred_j["mask"]
     np.testing.assert_array_equal(pred["mask"].numpy(), mask)
-    for key in ("boxes", "scores", "labels"):
+    for key in ("boxes", "labels"):
         np.testing.assert_array_equal(pred[key].numpy()[mask],
                                       pred_j[key][mask], err_msg=key)
+    # the scores go through sigmoid: XLA's float32 exp and torch's differ
+    # in the last bit on some inputs, which ones depending on the machine
+    # and its vector path (ROADMAP trap T19), so a kept score may be an
+    # ulp or two from JAX's
+    np.testing.assert_allclose(pred["scores"].numpy()[mask],
+                               pred_j["scores"][mask], rtol=3e-7, atol=0,
+                               err_msg="scores")
 
 
 @pytest.mark.parametrize("seed", [0, 1])
