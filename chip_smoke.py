@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's predict path and training step on one NVIDIA card and
-check them.
+"""Drive the port's predict path and training step on one NVIDIA card, in
+the ScanNet and the ARKit configurations, and check them.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -71,6 +71,31 @@ Phases, each printed as one JSON line:
            bf16 a gradient <= 2.5e-2 and all of them together <= 1e-2
            (K4's one-ulp roundings, spread by the bf16 backward), beside
            their distance from the float32 run's gradients
+  arkit_predict
+           `arkit_config()` at full width (per-view intrinsics, the yaw
+           head, 17 classes) with seeded random weights, three synthetic
+           ARKit scenes of 100 source views (the preset's 101 test views
+           less the target; each view its own K) and one target through
+           `make_predict_fn`, as `predict` (K1 and K3 once per scene,
+           boxes (256, 7) after the exact rotated NMS), and
+           `arkit_predict_vs_plain` as `predict_vs_plain`; float32, then
+           bf16
+  arkit_train
+           `arkit_config()`, one synthetic ARKit scene of 40 source views
+           and 2 targets (each its own K), 3 steps through `fit` as
+           `train` (each of K1-K5 and the index once per step), and
+           `arkit_train_vs_plain` with the tolerances of `train_vs_plain`;
+           float32, then bf16
+  batch_norm_train
+           `train` and `train_vs_plain` (float32) for `scannet_config()`
+           with CostRegNet in BatchNorm mode (`cost_reg_norm="batch"`: one
+           sweep chunk of all 40 views, no checkpoint), the step times and
+           the peak memory among them
+  batch_norm_statistics
+           every running statistic after the kernels' step of
+           `batch_norm_train_vs_plain` within 1e-6 of the plain versions'
+           step, CostRegNet's 14 all moved, and equal (1e-6) to those
+           after the forward alone: backward does not move them again
   cull     the compositor kernels' own cull boxes (`cull_boxes`) on the
            tables the predict and the training step gave K1, taken through
            the recorders: the slots `cull_boxes_reference` keeps, boxes
@@ -97,7 +122,10 @@ Phases, each printed as one JSON line:
            and its bf16 variant on the inputs the float32 and the bf16
            predict gave them (80 views), with their launches in the
            predict runs (`weighted_gather_sum_predict`,
-           `weighted_gather_sum_bf16_predict`).  Every K3 row is
+           `weighted_gather_sum_bf16_predict`), and on the inputs the
+           ARKit predicts gave them (100 views,
+           `weighted_gather_sum_arkit_predict`,
+           `weighted_gather_sum_bf16_arkit_predict`).  Every K3 row is
            bit-equal to its plain version, and each bf16 K3 row to the
            float32 kernel on the widened rows
 
@@ -118,6 +146,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -499,6 +528,12 @@ class Recorder:
         return out
 
 
+def running_stats(model) -> dict:
+    """Copies of a model's BatchNorm running means and variances."""
+    return {k: v.detach().clone() for k, v in model.state_dict().items()
+            if k.endswith(("running_mean", "running_var"))}
+
+
 def detached(args):
     return tuple(a.detach() if isinstance(a, torch.Tensor) else a
                  for a in args)
@@ -522,7 +557,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
 
-    from mvsdet_torch.config import scannet_config
+    from mvsdet_torch.config import arkit_config, scannet_config
     from mvsdet_torch.data.synthetic import make_synthetic_scene
     from mvsdet_torch.evaluation.harness import make_predict_fn
     from mvsdet_torch.models.mvsdet import build_model
@@ -731,7 +766,6 @@ def main(argv=None) -> int:
 
     # -- predict and train at full ScanNet width, float32 then bf16 -----
     cfg = scannet_config()
-    mc = cfg.model
     bf16 = torch.bfloat16
     frozen_prefixes = ("backbone.stem_", "backbone.layer1_")
 
@@ -744,43 +778,43 @@ def main(argv=None) -> int:
                   f"{run}: {name}'s bf16 variant launched {count} times, "
                   f"expected {want_bf16[name]}")
 
-    def predict_phases(dtype):
-        """N_SCENES predicts through make_predict_fn with the launch counts
-        set to 0 just before and read just after, then one scene with the
-        kernels against one with the plain versions.  Returns the launches
-        and the inputs K1 and K3 got."""
+    def predict_phases(cfg, scenes, dtype, phase="predict"):
+        """A predict of each scene through make_predict_fn with the launch
+        counts set to 0 just before and read just after, then the first
+        scene with the kernels against it with the plain versions.
+        Returns the launches and the inputs K1 and K3 got."""
         label = str(dtype).replace("torch.", "")
+        mc = cfg.model
+        n_scenes = len(scenes)
         model = build_model(cfg, device="cuda", dtype=dtype,
                             generator=torch.Generator().manual_seed(cfg.seed))
         predict = make_predict_fn(model)
-        scenes = [make_synthetic_scene(
-            cfg, seed=s, n_views=cfg.data.n_src_test,
-            n_targets=cfg.data.nerf_target_views_test)
-            for s in range(N_SCENES)]
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         preds = []
         for s, scene in enumerate(scenes):
             t0 = time.perf_counter()
             preds.append(predict(scene))
-            emit(phase="predict", dtype=label, scene=s,
+            emit(phase=phase, dtype=label, scene=s,
                  latency_ms=(time.perf_counter() - t0) * 1e3,
                  kept_boxes=int(preds[-1]["mask"].sum()))
         launches, bf16_launches = read_launches()
-        emit(phase="predict", dtype=label, scenes=N_SCENES,
+        emit(phase=phase, dtype=label, scenes=n_scenes,
              views=cfg.data.n_src_test, launches=launches,
              bf16_launches=bf16_launches,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
         check_launches(
             launches, bf16_launches,
-            {name: N_SCENES if name in ("composite_tiles",
+            {name: n_scenes if name in ("composite_tiles",
                                         "weighted_gather_sum") else 0
              for name in launches},
-            {name: N_SCENES if (name == "weighted_gather_sum"
+            {name: n_scenes if (name == "weighted_gather_sum"
                                 and dtype == bf16) else 0
-             for name in bf16_launches}, f"{N_SCENES} {label} predicts")
+             for name in bf16_launches}, f"{n_scenes} {label} {phase}s")
         md = mc.head.max_detections
-        shapes = dict(boxes=(md, 6), scores=(md,), labels=(md,), mask=(md,),
+        box_dim = 7 if mc.head.with_yaw else 6
+        shapes = dict(boxes=(md, box_dim), scores=(md,), labels=(md,),
+                      mask=(md,),
                       rendered=(1,) + mc.target_size + (3,),
                       depth_expect=(cfg.data.n_src_test,) + mc.feature_size)
         for pred in preds:
@@ -814,23 +848,24 @@ def main(argv=None) -> int:
             np.array_equal(pk["labels"][m], pp["labels"][m])
             and np.allclose(pk["boxes"][m], pp["boxes"][m], rtol=1e-5,
                             atol=1e-5))
-        emit(phase="predict_vs_plain", dtype=label, volume_max_rel_err=vol_rel,
+        emit(phase=f"{phase}_vs_plain", dtype=label,
+             volume_max_rel_err=vol_rel,
              rendered_max_abs_err=rend_err, mask_equal=mask_equal,
              boxes_labels_equal_under_mask=boxes_equal,
              kept_boxes=int(m.sum()))
-        check(rend_err <= 1e-4, f"{label}: rendered differs by {rend_err} "
-                                f"> 1e-4")
-        check(vol_rel <= 1e-5, f"{label}: lifted volume differs by "
+        check(rend_err <= 1e-4, f"{phase} {label}: rendered differs by "
+                                f"{rend_err} > 1e-4")
+        check(vol_rel <= 1e-5, f"{phase} {label}: lifted volume differs by "
                                f"{vol_rel} > 1e-5")
-        check(boxes_equal, f"{label}: kept boxes or labels differ under the "
-                           f"mask")
+        check(boxes_equal, f"{phase} {label}: kept boxes or labels differ "
+                           f"under the mask")
         k1_args, k3_args = detached(ck.args), detached(lk.args)
         torch.backends.cudnn.deterministic = False
-        del model, predict, scenes, preds, runs, pk, pp, lk, lp, ck
+        del model, predict, preds, runs, pk, pp, lk, lp, ck
         torch.cuda.empty_cache()
         return launches, bf16_launches, k1_args, k3_args
 
-    def train_phases(dtype, scene, grads32=None):
+    def train_phases(cfg, dtype, scene, grads32=None, phase="train"):
         """TRAIN_STEPS steps through fit with the launch counts set to 0
         just before and read just after, then one step's forward and
         backward with the kernels against one with the plain versions (and,
@@ -851,7 +886,7 @@ def main(argv=None) -> int:
             step_logs.append(dict(step=i, latency_ms=(now - t_start[0]) * 1e3,
                                   **metrics))
             t_start[0] = now
-            emit(phase="train", dtype=label, **step_logs[-1])
+            emit(phase=phase, dtype=label, **step_logs[-1])
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -861,7 +896,7 @@ def main(argv=None) -> int:
             log_every=1, log_fn=log_step)
         launches, bf16_launches = read_launches()
         steady = [s["latency_ms"] for s in step_logs[1:]]
-        emit(phase="train", dtype=label, steps=TRAIN_STEPS,
+        emit(phase=phase, dtype=label, steps=TRAIN_STEPS,
              views=cfg.data.n_src_train,
              targets=cfg.data.nerf_target_views_train, launches=launches,
              bf16_launches=bf16_launches,
@@ -872,13 +907,15 @@ def main(argv=None) -> int:
             launches, bf16_launches, {name: TRAIN_STEPS for name in launches},
             {name: TRAIN_STEPS if dtype == bf16 else 0
              for name in bf16_launches},
-            f"{TRAIN_STEPS} {label} train steps")
+            f"{TRAIN_STEPS} {label} {phase} steps")
         for log in step_logs:
             check(all(np.isfinite(v) for k, v in log.items()
                       if k not in ("step", "latency_ms")),
-                  f"{label} step {log['step']}: a loss is not finite: {log}")
+                  f"{phase} {label} step {log['step']}: a loss is not "
+                  f"finite: {log}")
             check(log["loss_nvs"] > 0 and "cls_loss" in log,
-                  f"{label} step {log['step']}: loss terms missing: {log}")
+                  f"{phase} {label} step {log['step']}: loss terms "
+                  f"missing: {log}")
         moved = frozen_moved = 0
         for name, p in state.model.named_parameters():
             changed = not torch.equal(p.detach(), params0[name])
@@ -890,20 +927,23 @@ def main(argv=None) -> int:
             list(state.model.parameters()) + list(state.model.buffers())
             + [v for st in state.optimizer.state.values()
                for v in st.values() if torch.is_tensor(v) and v.ndim])})
-        emit(phase="train", dtype=label, parameters_moved=moved,
+        emit(phase=phase, dtype=label, parameters_moved=moved,
              frozen_moved=frozen_moved, state_dtypes=state_dtypes)
         check(moved > 0.9 * sum(1 for n in params0
                                 if not n.startswith(frozen_prefixes)),
-              f"{label}: only {moved} trainable parameters moved")
-        check(frozen_moved == 0, f"{label}: {frozen_moved} frozen parameters "
-                                 f"moved")
+              f"{phase} {label}: only {moved} trainable parameters moved")
+        check(frozen_moved == 0, f"{phase} {label}: {frozen_moved} frozen "
+                                 f"parameters moved")
         check(state_dtypes == ["torch.float32"],
-              f"{label}: parameters, statistics or AdamW state in "
+              f"{phase} {label}: parameters, statistics or AdamW state in "
               f"{state_dtypes}")
         del state, params0
 
-        # one step with the kernels, then with the plain versions
+        # one step with the kernels, then with the plain versions; cuDNN
+        # and the sweep's index_add_ deterministic, so that the two runs
+        # differ only where the kernels and their plain versions do
         torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
         base = create_train_state(
             cfg, device="cuda", dtype=dtype,
             generator=torch.Generator().manual_seed(cfg.seed))
@@ -940,13 +980,13 @@ def main(argv=None) -> int:
                     p.stop()
             results[run] = ({k: v.item() for k, v in aux.items()},
                             {k: p.grad for k, p in model.named_parameters()
-                             if p.grad is not None})
+                             if p.grad is not None}, running_stats(model))
             del model, total, aux
-        (lk_, gk), (lp_, gp) = results["kernel"], results["plain"]
+        (lk_, gk, sk), (lp_, gp, sp) = results["kernel"], results["plain"]
         loss_rel = {k: abs(lk_[k] - lp_[k]) / max(abs(lp_[k]), 1e-30)
                     for k in lp_}
-        check(set(gk) == set(gp), f"{label}: the two runs give gradients to "
-                                  f"different parameters")
+        check(set(gk) == set(gp), f"{phase} {label}: the two runs give "
+                                  f"gradients to different parameters")
         def rel_by_leaf(a, b):
             return {k: (torch.linalg.vector_norm(a[k] - b[k])
                         / torch.linalg.vector_norm(b[k]).clamp_min(1e-30))
@@ -970,11 +1010,11 @@ def main(argv=None) -> int:
                          worst_grads_from_float32=sorted(
                              witness.items(), key=lambda kv: -kv[1])[:5])
         all_rel = rel_all(gk, gp)
-        emit(phase="train_vs_plain", dtype=label, loss_rel_err=loss_rel,
+        emit(phase=f"{phase}_vs_plain", dtype=label, loss_rel_err=loss_rel,
              max_grad_rel_err=worst[0][1], all_grads_rel_err=all_rel,
              worst_grads=worst, n_grads=len(grad_rel), **extra)
         check(max(loss_rel.values()) <= 1e-5,
-              f"{label}: loss terms differ: {loss_rel}")
+              f"{phase} {label}: loss terms differ: {loss_rel}")
         # float32: the kernels and the plain versions sum in other orders.
         # bf16: K4 rounds each d-feat value once from its own float32 sum
         # and the plain backward from another, so now and then a value
@@ -984,32 +1024,100 @@ def main(argv=None) -> int:
         leaf_tol, all_tol = (1e-4, 1e-4) if dtype == torch.float32 \
             else (2.5e-2, 1e-2)
         check(worst[0][1] <= leaf_tol and all_rel <= all_tol,
-              f"{label}: gradients differ: {worst}, all {all_rel}")
+              f"{phase} {label}: gradients differ: {worst}, all {all_rel}")
         feat_dtype = recorders["weighted_gather_sum"][1].args[0].dtype
         dfeat_dtype = recorders["weighted_gather_sum_dfeat"][1].out.dtype
         check(feat_dtype == dfeat_dtype == dtype,
-              f"{label}: the lift took {feat_dtype} rows and gave a "
+              f"{phase} {label}: the lift took {feat_dtype} rows and gave a "
               f"{dfeat_dtype} d-feat")
         torch.backends.cudnn.deterministic = False
+        torch.use_deterministic_algorithms(False)
         gk = {k: v.cpu() for k, v in gk.items()}
         del base, batch, results, gp
         torch.cuda.empty_cache()
-        return launches, bf16_launches, recorders, gk
+        return launches, bf16_launches, recorders, gk, (sk, sp)
 
+    def batch_norm_phases(scene):
+        """CostRegNet trained in BatchNorm mode (`cost_reg_norm="batch"`):
+        `train_phases` in float32, then the running statistics after its
+        one step with the kernels against those with the plain versions,
+        and against a fresh model's after the forward alone (BatchNorm
+        must move them once a step, not again in backward)."""
+        cfg_bn = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, cost_reg_norm="batch"))
+        *_, (kernel, plain) = train_phases(cfg_bn, torch.float32, scene,
+                                           phase="batch_norm_train")
+        model = create_train_state(
+            cfg_bn, device="cuda",
+            generator=torch.Generator().manual_seed(cfg.seed)).model
+        initial = running_stats(model)
+        torch.backends.cudnn.deterministic = True
+        model.loss({k: torch.as_tensor(v).cuda() for k, v in scene.items()})
+        torch.backends.cudnn.deterministic = False
+        forward = running_stats(model)
+        cost_reg = [k for k in initial if k.startswith("cost_reg.")]
+
+        def max_rel(a, b, keys):
+            return max(((a[k] - b[k]).abs().max()
+                        / b[k].abs().max().clamp_min(1e-30)).item()
+                       for k in keys)
+
+        vs_plain = max_rel(kernel, plain, initial)
+        vs_forward = max_rel(kernel, forward, cost_reg)
+        moved = sum(not torch.equal(kernel[k], initial[k]) for k in cost_reg)
+        emit(phase="batch_norm_statistics", statistics=len(initial),
+             cost_reg_statistics=len(cost_reg), cost_reg_moved=moved,
+             max_rel_err_vs_plain=vs_plain,
+             cost_reg_max_rel_err_vs_forward_only=vs_forward)
+        check(len(cost_reg) == 14 and moved == len(cost_reg),
+              f"batch norm: {moved} of {len(cost_reg)} CostRegNet running "
+              f"statistics moved in a step")
+        check(vs_plain <= 1e-6, f"batch norm: running statistics differ from "
+                                f"the plain versions' step by {vs_plain}")
+        check(vs_forward <= 1e-6,
+              f"batch norm: backward moved CostRegNet's running statistics "
+              f"again ({vs_forward} from the forward's)")
+        del model
+        torch.cuda.empty_cache()
+
+    scenes = [make_synthetic_scene(cfg, seed=s, n_views=cfg.data.n_src_test,
+                                   n_targets=cfg.data.nerf_target_views_test)
+              for s in range(N_SCENES)]
     predict_launches, _, k1_predict_args, k3_predict_args = predict_phases(
-        torch.float32)
+        cfg, scenes, torch.float32)
     cull = cull_check(k1_predict_args[0], k1_predict_args[2])
     emit(phase="cull", tables="predict", tiles=k1_predict_args[0].shape[0],
          k=k1_predict_args[0].shape[2], **cull)
     check_cull(cull, "predict")
-    _, predict_bf16_launches, _, k3b_predict_args = predict_phases(bf16)
+    _, predict_bf16_launches, _, k3b_predict_args = predict_phases(
+        cfg, scenes, bf16)
 
     scene = make_synthetic_scene(cfg, seed=0, n_views=cfg.data.n_src_train,
                                  n_targets=cfg.data.nerf_target_views_train)
-    train_launches, _, recorders, grads32 = train_phases(torch.float32, scene)
-    _, train_bf16_launches, recorders_bf16, _ = train_phases(bf16, scene,
-                                                             grads32)
-    del grads32
+    train_launches, _, recorders, grads32, _ = train_phases(
+        cfg, torch.float32, scene)
+    _, train_bf16_launches, recorders_bf16, _, _ = train_phases(
+        cfg, bf16, scene, grads32)
+
+    # -- the ARKit configuration: per-view intrinsics, the yaw head -------
+    arkit = arkit_config()
+    scenes = [make_synthetic_scene(
+        arkit, seed=s, n_views=arkit.data.n_src_test,
+        n_targets=arkit.data.nerf_target_views_test, arkit=True)
+        for s in range(N_SCENES)]
+    arkit_launches, _, _, k3_arkit_args = predict_phases(
+        arkit, scenes, torch.float32, phase="arkit_predict")
+    _, arkit_bf16_launches, _, k3b_arkit_args = predict_phases(
+        arkit, scenes, bf16, phase="arkit_predict")
+    arkit_scene = make_synthetic_scene(
+        arkit, seed=0, n_views=arkit.data.n_src_train,
+        n_targets=arkit.data.nerf_target_views_train, arkit=True)
+    _, _, _, grads32, _ = train_phases(arkit, torch.float32, arkit_scene,
+                                       phase="arkit_train")
+    train_phases(arkit, bf16, arkit_scene, grads32, phase="arkit_train")
+    del scenes, arkit_scene, grads32
+
+    batch_norm_phases(scene)
 
     # -- kernels line ----------------------------------------------------
     args = {name: detached(r.args) for name, (_, r) in recorders.items()}
@@ -1278,12 +1386,17 @@ def main(argv=None) -> int:
                                             *k5b_args, rows4b),
              pairs=k5b_args[1].numel(), shape=lift_shape_b),
     ]
-    # K3 at the predict's own inputs (80 views), float32 and bf16
+    # K3 at the predicts' own inputs (80 views; ARKit: 100), float32 and
+    # bf16
     for name, launches, args in (
             ("weighted_gather_sum_predict",
              predict_launches["weighted_gather_sum"], k3_predict_args),
             ("weighted_gather_sum_bf16_predict",
-             predict_bf16_launches["weighted_gather_sum"], k3b_predict_args)):
+             predict_bf16_launches["weighted_gather_sum"], k3b_predict_args),
+            ("weighted_gather_sum_arkit_predict",
+             arkit_launches["weighted_gather_sum"], k3_arkit_args),
+            ("weighted_gather_sum_bf16_arkit_predict",
+             arkit_bf16_launches["weighted_gather_sum"], k3b_arkit_args)):
         feat_p, pix_p, w_p = args
         got = weighted_gather_sum(*args)
         ref = weighted_gather_sum_reference(*args)

@@ -62,16 +62,21 @@ def depth_scale_map(height: int, width: int,
     integer pixel coordinate.
 
     Args:
-      feat_intrinsic: (3, 3) or (4, 4) K at feature resolution.
+      feat_intrinsic: (3, 3) or (4, 4) K at feature resolution, or
+        (N, 3|4, 3|4) per view (ARKit, `compute_depth_scale_MultiIntrin`,
+        mvsdet.py:1189-1218).
 
     Returns:
-      (H*W, 1).
+      (H*W, 1) for one K, (N, H*W, 1) for per-view Ks.
     """
     k = feat_intrinsic[..., :3, :3]
     ys, xs = torch.meshgrid(
         torch.arange(height, dtype=k.dtype, device=k.device),
         torch.arange(width, dtype=k.dtype, device=k.device), indexing="ij")
     uv = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1)
+    if k.ndim == 3:
+        uv = uv.expand((k.shape[0],) + uv.shape)
+        k = k[:, None]                      # one K for each view's pixels
     d = unproject(uv, torch.ones(uv.shape[:-1], dtype=k.dtype,
                                  device=k.device), k)
     d = d / torch.linalg.norm(d, dim=-1, keepdim=True)

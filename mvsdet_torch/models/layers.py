@@ -137,6 +137,13 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return _Softplus.apply(x)
 
 
+def at_least(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """`jnp.maximum(x, lo)`: where x equals lo, half the gradient passes to
+    x, as JAX splits a tie (`torch.clamp_min` would pass all of it,
+    ROADMAP trap T20)."""
+    return torch.maximum(x, x.new_tensor(lo))
+
+
 class FrozenBatchNorm(nn.Module):
     """BatchNorm with frozen statistics and affine (buffers, no gradient).
 

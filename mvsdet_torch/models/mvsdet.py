@@ -12,11 +12,12 @@
   per-pixel Gaussians -> tile splatting (CUDA compositor on the card).
 
 `forward(batch, train)` is `MVSDet.__call__`; `loss` adds the head
-losses, the novel-view MSE and the optional depth L1.  View sharding, the
-rotated ARKit head, per-view intrinsics and CostRegNet's BatchNorm mode in
-training come later.  The plane sweep is the bilinear gather
-(`sweep_method="gather"` of the JAX module).  Public tensors keep the JAX
-package's channels-last layout.
+losses, the novel-view MSE and the optional depth L1.  ScanNet's shared
+intrinsics and ARKit's per-view and per-target ones both run, as do the
+aligned head and the ARKit yaw head (`head.with_yaw`), and CostRegNet in
+GroupNorm or BatchNorm mode.  View sharding comes later.  The plane sweep
+is the bilinear gather (`sweep_method="gather"` of the JAX module).
+Public tensors keep the JAX package's channels-last layout.
 
 ``dtype`` is the JAX module's compute dtype: the networks compute in it
 (bf16 is the configuration the JAX package benchmarks and trains), while
@@ -49,7 +50,9 @@ from mvsdet_torch.models.cost_reg import CostRegNet
 from mvsdet_torch.models.fpn import FPN
 from mvsdet_torch.models.gaussian_head import (Gaussians, ToGaussians,
                                                adapt_gaussians)
-from mvsdet_torch.models.head import DetectionHead, head_loss, head_predict
+from mvsdet_torch.models.head import (DetectionHead, head_loss,
+                                      head_loss_rotated, head_predict,
+                                      head_predict_rotated)
 from mvsdet_torch.models.layers import sigmoid
 from mvsdet_torch.models.neck3d import IndoorImVoxelNeck
 from mvsdet_torch.models.resnet import ResNet50
@@ -119,7 +122,11 @@ class MVSDet(nn.Module):
 
         With gradients on and ``sweep_remat``, each chunk runs under
         `torch.utils.checkpoint`: only its inputs are kept, and backward
-        runs its forward again.
+        runs its forward again.  Training CostRegNet in BatchNorm mode runs
+        one chunk of all N views, as the JAX module does
+        (mvsdet_tpu/models/mvsdet.py:128-139), so that its statistics are
+        the whole batch's, and without checkpoint: a recompute in backward
+        would move the running statistics a second time (ROADMAP T21).
 
         Returns (prob, off), both (N, D, h, w) float32: prob softmaxed
         over D, off sigmoided (mvsdet.py:470-475).  The float32 variance
@@ -127,17 +134,12 @@ class MVSDet(nn.Module):
         to float32 before the softmax and the sigmoid.
         """
         mc = self.cfg
-        if mc.cost_reg_norm == "batch" and train:
-            # the JAX module collapses the sweep to one full-batch chunk
-            # (mvsdet.py:128-139); under checkpoint, BatchNorm's running
-            # statistics would also be updated a second time in backward
-            raise NotImplementedError("training CostRegNet in BatchNorm "
-                                      "mode is not ported yet")
         n = features.shape[0]
         depths = depth_plane_values(*mc.near_far_range,
                                     mc.gs.num_depth_planes,
                                     device=features.device)
-        chunk = self.sweep_chunk
+        batch_stats = mc.cost_reg_norm == "batch" and train
+        chunk = n if batch_stats else self.sweep_chunk
         if n % chunk != 0:
             chunk = 1 if n < chunk else max(
                 c for c in range(1, chunk + 1) if n % c == 0)
@@ -150,7 +152,8 @@ class MVSDet(nn.Module):
             out = out.to(torch.float32)
             return torch.softmax(out[:, 0], dim=1), sigmoid(out[:, 1])
 
-        remat = self.sweep_remat and torch.is_grad_enabled()
+        remat = (self.sweep_remat and torch.is_grad_enabled()
+                 and not batch_stats)
         probs, offs = [], []
         for ref_ids in torch.arange(n, device=features.device).reshape(-1, chunk):
             p, o = (checkpoint(step, ref_ids, use_reentrant=False) if remat
@@ -217,10 +220,16 @@ class MVSDet(nn.Module):
         opacity = prob.amax(dim=1)[sel].reshape(s, h * w)
         opacity = opacity * first[:, None].to(opacity.dtype)
 
+        # normalised source Ks: one shared K (ScanNet) or one per view
+        # (ARKit, mvsdet.py:549-553)
         norm = torch.tensor([[w], [h], [1.0]], dtype=torch.float32, device=dev)
-        k_norm = (feat_intrinsic[:3, :3] / norm).expand(s, 3, 3)
-        scale = depth_scale_map(h, w, feat_intrinsic[:3, :3])  # (hw, 1)
-        ray_depth = depth_code[..., 0] / (scale[None, :, 0] + 1e-8)
+        if feat_intrinsic.ndim == 2:
+            k_norm = (feat_intrinsic[:3, :3] / norm).expand(s, 3, 3)
+            scale = depth_scale_map(h, w, feat_intrinsic[:3, :3])[None]
+        else:
+            k_norm = feat_intrinsic[sel, :3, :3] / norm
+            scale = depth_scale_map(h, w, feat_intrinsic[:, :3, :3])[sel]
+        ray_depth = depth_code[..., 0] / (scale[..., 0] + 1e-8)
 
         g = adapt_gaussians(src_c2w[sel], k_norm, coords, ray_depth, opacity,
                             raw[..., 2:], (h, w), mc.gs.adapter)
@@ -239,12 +248,10 @@ class MVSDet(nn.Module):
 
         `batch` (one scene): images (N, H, W, 3) normalised;
         denorm_images (N, H, W, 3); w2c (N, 4, 4); intrinsic (4, 4) K at
-        image resolution; origin (3,); tgt_c2w (T, 4, 4); tgt_intrinsic
-        (4, 4) K at target resolution.
+        image resolution, or (N, 4, 4) one per view (ARKit); origin (3,);
+        tgt_c2w (T, 4, 4); tgt_intrinsic (4, 4) K at target resolution, or
+        (T, 4, 4) one per target.
         """
-        if batch["intrinsic"].ndim != 2:
-            raise NotImplementedError("per-view intrinsics (ARKit) are not "
-                                      "ported yet")
         mc = self.cfg
         feats = self.image_features(batch["images"].to(self.dtype))
         feats = feats.to(torch.float32)     # the sweep's and the splats'
@@ -285,16 +292,15 @@ class MVSDet(nn.Module):
                     proj44=proj44)
 
     def render_targets(self, gaussians: Gaussians, batch, image_shape):
-        """Splat the scene Gaussians into every render target view."""
+        """Splat the scene Gaussians into every render target view, with
+        one shared target K or one per target (ARKit, mvsdet.py:645-658)."""
         ht, wt = image_shape
         n_tgt = batch["tgt_c2w"].shape[0]
         tgt_k = batch["tgt_intrinsic"]
-        if tgt_k.ndim != 2:
-            raise NotImplementedError("per-target intrinsics (ARKit) are not "
-                                      "ported yet")
         norm = torch.tensor([[wt], [ht], [1.0]], dtype=torch.float32,
                             device=tgt_k.device)
-        ks = (tgt_k[:3, :3] / norm).expand(n_tgt, 3, 3)
+        ks = (tgt_k[:3, :3] / norm).expand(n_tgt, 3, 3) if tgt_k.ndim == 2 \
+            else tgt_k[:, :3, :3] / norm
         bg = torch.tensor(self.cfg.gs.background_color, dtype=torch.float32,
                           device=tgt_k.device)
         return render_views_tiled(
@@ -335,7 +341,8 @@ class MVSDet(nn.Module):
         """
         mc = self.cfg
         result = self(batch, train=True)
-        losses, aux = head_loss(
+        loss_fn = head_loss_rotated if mc.head.with_yaw else head_loss
+        losses, aux = loss_fn(
             result["head_outs"], result["points"], result["valids"],
             batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"], mc.head)
         if "rendered" in result and mc.rgb_supervision:
@@ -358,8 +365,10 @@ class MVSDet(nn.Module):
         """NMS'd boxes, rendered target views and the depth expectation
         (`MVSDet.predict(diagnostics=False)`, mvsdet.py:500-547)."""
         result = self(batch)
-        pred = head_predict(result["head_outs"], result["points"],
-                            result["valids"], self.cfg.head)
+        predict_fn = (head_predict_rotated if self.cfg.head.with_yaw
+                      else head_predict)
+        pred = predict_fn(result["head_outs"], result["points"],
+                          result["valids"], self.cfg.head)
         if "rendered" in result:
             pred["rendered"] = result["rendered"]
         pred["depth_expect"] = result["depth_expect"]

@@ -1,11 +1,16 @@
 """Where one predict's time goes on the card.
 
     python -m mvsdet_torch.tools.profile_predict [--dtype bfloat16]
+                                                 [--config arkit]
 
-Builds `scannet_config()` at full width with seeded random weights, runs
-a synthetic scene of 80 source views and one target through `make_predict_fn` three times to warm up, then
-traces one more predict with `torch.profiler` and prints JSON lines: the
-card (as nvidia-smi names it, with its power limit), the traced
+Builds `scannet_config()` (or `arkit_config()`) at full width with seeded
+random weights, runs a synthetic scene of the preset's test views (80
+source views and one target; ARKit: 100 and one, with per-view
+intrinsics) through `make_predict_fn` three times to warm up, times one
+more with the NMS between two CUDA events (its span on the device and
+its share of that predict's host latency: the rotated NMS for ARKit),
+then traces one more predict with `torch.profiler` and prints JSON lines:
+the card (as nvidia-smi names it, with its power limit), the traced
 predict's host latency, the device's busy time (the union of its kernel
 intervals) and idle share over that latency, its device-to-host copies
 (each a host read that waits for the device), and the kernels that took
@@ -24,9 +29,10 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from mvsdet_torch.config import scannet_config
+from mvsdet_torch.config import Config, arkit_config, scannet_config
 from mvsdet_torch.data.synthetic import make_synthetic_scene
 from mvsdet_torch.evaluation.harness import make_predict_fn
+from mvsdet_torch.models import head
 from mvsdet_torch.models.mvsdet import build_model
 
 
@@ -45,18 +51,33 @@ def _busy_us(intervals) -> float:
 
 TOP = 20
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+CONFIGS = {"scannet": scannet_config, "arkit": arkit_config}
 
 
-def compute_dtype(description: str) -> torch.dtype:
-    """The model's compute dtype from the command line's `--dtype`."""
+def command_line(description: str):
+    """(config, its name, compute dtype) from the command line's
+    `--config` and `--dtype`."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
                         help="the model's compute dtype")
-    return DTYPES[parser.parse_args().dtype]
+    parser.add_argument("--config", choices=sorted(CONFIGS),
+                        default="scannet", help="the model's preset")
+    args = parser.parse_args()
+    return CONFIGS[args.config](), args.config, DTYPES[args.dtype]
+
+
+def synthetic_scene(cfg: Config, name: str, train: bool):
+    """A synthetic scene of the preset's training or test views, with
+    per-view intrinsics and yaw boxes for ARKit."""
+    data = cfg.data
+    return make_synthetic_scene(
+        cfg, seed=0, n_views=data.n_src_train if train else data.n_src_test,
+        n_targets=(data.nerf_target_views_train if train
+                   else data.nerf_target_views_test), arkit=name == "arkit")
 
 
 def main() -> None:
-    dtype = compute_dtype(__doc__.split("\n")[0])
+    cfg, name, dtype = command_line(__doc__.split("\n")[0])
     if not torch.cuda.is_available():
         raise SystemExit("profile_predict measures the card; no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -66,16 +87,36 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi}), flush=True)
-    cfg = scannet_config()
     predict = make_predict_fn(build_model(
         cfg, generator=torch.Generator().manual_seed(cfg.seed), dtype=dtype))
-    scene = make_synthetic_scene(cfg, seed=0, n_views=cfg.data.n_src_test,
-                                 n_targets=cfg.data.nerf_target_views_test)
+    scene = synthetic_scene(cfg, name, train=False)
     warm = []
     for _ in range(3):
         t0 = time.perf_counter()
         predict(scene)
         warm.append((time.perf_counter() - t0) * 1e3)
+
+    # the NMS's span on the device, between two events recorded in the
+    # stream around it (the host copy at the end of predict waits for both)
+    nms_name = "rotated_3d_nms" if cfg.model.head.with_yaw \
+        else "aligned_3d_nms"
+    nms = getattr(head, nms_name)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def timed_nms(*args):
+        events[0].record()
+        out = nms(*args)
+        events[1].record()
+        return out
+
+    setattr(head, nms_name, timed_nms)
+    try:
+        t0 = time.perf_counter()
+        predict(scene)
+        nms_latency_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        setattr(head, nms_name, nms)
+    nms_ms = events[0].elapsed_time(events[1])
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -96,8 +137,10 @@ def main() -> None:
                      if name.startswith("Memcpy DtoH"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:TOP]
     print(json.dumps({
-        "views": cfg.data.n_src_test, "dtype": str(dtype),
-        "warmup_latency_ms": warm,
+        "config": name, "views": cfg.data.n_src_test, "dtype": str(dtype),
+        "warmup_latency_ms": warm, "nms": nms_name, "nms_ms": nms_ms,
+        "nms_share": nms_ms / nms_latency_ms,
+        "nms_predict_latency_ms": nms_latency_ms,
         "latency_ms": latency_ms, "device_busy_ms": busy_ms,
         "idle_share": 1.0 - busy_ms / latency_ms,
         "kernel_ms": kernel_ms, "device_events": len(kernels),

@@ -1,8 +1,10 @@
 """Where one training step's time goes on the card.
 
     python -m mvsdet_torch.tools.profile_train [--dtype bfloat16]
+                                               [--config arkit]
 
-Builds `scannet_config()` at full width with seeded random weights and a
+Builds `scannet_config()` (or `arkit_config()`, with per-view intrinsics
+and the yaw head) at full width with seeded random weights and a
 synthetic scene of 40 source views (240x320) and 2 render targets
 (120x160), runs three `train_step`s to warm up (each timed on the host
 clock, ending in a copy of the loss to host), then traces one more step
@@ -26,10 +28,9 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from mvsdet_torch.config import scannet_config
 from mvsdet_torch.data.prefetch import stage_batch
-from mvsdet_torch.data.synthetic import make_synthetic_scene
-from mvsdet_torch.tools.profile_predict import TOP, _busy_us, compute_dtype
+from mvsdet_torch.tools.profile_predict import (TOP, _busy_us, command_line,
+                                                synthetic_scene)
 from mvsdet_torch.training.loop import create_train_state, train_step
 
 # the port's kernels by the names nvcc gives their entry points: (kernel,
@@ -54,7 +55,7 @@ def _port_kernel(name: str):
 
 
 def main() -> None:
-    dtype = compute_dtype(__doc__.split("\n")[0])
+    cfg, name, dtype = command_line(__doc__.split("\n")[0])
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card; no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -64,12 +65,9 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi}), flush=True)
-    cfg = scannet_config()
     state = create_train_state(
         cfg, generator=torch.Generator().manual_seed(cfg.seed), dtype=dtype)
-    scene = make_synthetic_scene(cfg, seed=0, n_views=cfg.data.n_src_train,
-                                 n_targets=cfg.data.nerf_target_views_train)
-    batch = stage_batch(scene, "cuda")
+    batch = stage_batch(synthetic_scene(cfg, name, train=True), "cuda")
 
     def step() -> float:
         t0 = time.perf_counter()
@@ -103,7 +101,7 @@ def main() -> None:
     host_reads = sum(n for name, (_, n) in by_name.items()
                      if name.startswith("Memcpy DtoH"))
     print(json.dumps({
-        "views": cfg.data.n_src_train, "dtype": str(dtype),
+        "config": name, "views": cfg.data.n_src_train, "dtype": str(dtype),
         "targets": cfg.data.nerf_target_views_train,
         "warmup_step_ms": warm, "latency_ms": latency_ms,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / latency_ms,

@@ -584,3 +584,60 @@ def test_train_step_on_card_matches_cpu(cuda):
         for key, value in want.items():
             assert abs(got[key].item() - value.item()) <= \
                 1e-4 * abs(value.item()), key
+
+
+def test_rotated_nms_on_card_matches_cpu(cuda):
+    """The ARKit predict's NMS at its full candidate count (3 levels of
+    nms_pre: 1000 + 1000 + 400 = 2,400 yaw boxes, 17 classes, 256 picks):
+    the exact IoU matrix within 1e-5 of the CPU's (cos and sin differ in
+    the last bit), the kept indices and mask equal."""
+    from mvsdet_torch.ops.nms import rotated_3d_nms, rotated_iou_bev_exact
+
+    rng = np.random.RandomState(0)
+    m = 2400
+    boxes = np.concatenate([
+        rng.uniform(-2, 2, (m, 2)), rng.uniform(0, 1.5, (m, 1)),
+        rng.uniform(0.2, 2.0, (m, 3)), rng.uniform(-np.pi, np.pi, (m, 1))],
+        1).astype(np.float32)
+    scores = rng.rand(m).astype(np.float32)
+    classes = rng.randint(0, 17, m)
+    valid = scores > 0.1
+    cpu = [torch.from_numpy(a) for a in (boxes, scores, classes, valid)]
+    card = [t.to(cuda) for t in cpu]
+    iou_cpu = rotated_iou_bev_exact(cpu[0], cpu[0])
+    iou_card = rotated_iou_bev_exact(card[0], card[0])
+    assert (iou_card.cpu() - iou_cpu).abs().max() <= 1e-5
+    want = rotated_3d_nms(cpu[0], cpu[1], cpu[2], 0.25, cpu[3], 256)
+    got = rotated_3d_nms(card[0], card[1], card[2], 0.25, card[3], 256)
+    assert torch.equal(got[1].cpu(), want[1]) and want[1].sum() > 100
+    assert torch.equal(got[0].cpu(), want[0])
+
+
+def test_arkit_predict_on_card_matches_cpu(cuda):
+    """The tiny narrow model with the yaw head on an ARKit scene (per-view
+    and per-target intrinsics): K1 and K3 launched once each; outputs as
+    `test_predict_on_card_matches_cpu` holds them, boxes (max_det, 7)."""
+    base = tiny_test_config()
+    cfg = dataclasses.replace(base, model=dataclasses.replace(
+        base.model, neck3d_out_channels=16,
+        backbone=dataclasses.replace(base.model.backbone,
+                                     fpn_out_channels=32),
+        head=dataclasses.replace(base.model.head, n_reg_outs=7,
+                                 with_yaw=True)))
+    scene = make_synthetic_scene(cfg, seed=0, n_views=5, n_targets=2,
+                                 arkit=True)
+    gen = lambda: torch.Generator().manual_seed(0)
+    want = make_predict_fn(build_model(cfg, "cpu", gen()), "cpu")(scene)
+    launches = (composite_tiles.launches, weighted_gather_sum.launches)
+    got = make_predict_fn(build_model(cfg, "cuda", gen()))(scene)
+    assert (composite_tiles.launches, weighted_gather_sum.launches) == \
+        (launches[0] + 1, launches[1] + 1)
+    assert got["boxes"].shape == (cfg.model.head.max_detections, 7)
+    np.testing.assert_allclose(got["rendered"], want["rendered"], atol=1e-4)
+    np.testing.assert_allclose(got["depth_expect"], want["depth_expect"],
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(got["mask"], want["mask"])
+    mask = want["mask"]
+    np.testing.assert_array_equal(got["labels"][mask], want["labels"][mask])
+    np.testing.assert_allclose(got["boxes"][mask], want["boxes"][mask],
+                               rtol=1e-4, atol=1e-4)

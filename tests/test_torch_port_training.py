@@ -535,13 +535,26 @@ def test_loss_with_depth_supervision_matches_jax():
 
 
 def test_batch_norm_cost_regulariser_refuses_training():
+    """CostRegNet in BatchNorm mode refuses to train on view chunks: in
+    train mode the sweep runs one chunk of all four views, so that the
+    statistics are the batch's (as the JAX module's,
+    mvsdet_tpu/models/mvsdet.py:128-139), while eval keeps the configured
+    chunks of two."""
     cfg = train_config(port_config.tiny_test_config())
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, cost_reg_norm="batch"))
     state = create_train_state(cfg, device="cpu", sweep_chunk=2)
-    scene = make_synthetic_scene(cfg, seed=0, n_views=3, n_targets=1)
-    with pytest.raises(NotImplementedError, match="BatchNorm"):
-        state.model.loss({k: torch.from_numpy(v) for k, v in scene.items()})
+    scene = make_synthetic_scene(cfg, seed=0, n_views=4, n_targets=1)
+    chunks = []
+    state.model.cost_reg.register_forward_pre_hook(
+        lambda mod, args: chunks.append(args[0].shape[0]))
+    batch = {k: torch.from_numpy(v) for k, v in scene.items()}
+    total, _ = state.model.loss(batch)
+    assert chunks == [4] and torch.isfinite(total)
+    chunks.clear()
+    with torch.no_grad():
+        state.model.eval()(batch)
+    assert chunks == [2, 2]
 
 
 def drift(metrics, final, ref_metrics, ref_final) -> dict:
