@@ -96,6 +96,28 @@ Phases, each printed as one JSON line:
            `batch_norm_train_vs_plain` within 1e-6 of the plain versions'
            step, CostRegNet's 14 all moved, and equal (1e-6) to those
            after the forward alone: backward does not move them again
+  launch_train
+           the train launcher (`mvsdet_torch.tools.train.main`) in
+           process: 4 bf16 steps on 2 synthetic scenes of 40 source views
+           and 2 targets, an epoch of 2 steps, each epoch ending in a save
+           of `latest`, an evaluation of one 80-view scene and a save of
+           `best` where its mAP_0.25 is the best, into build/launch; four
+           finite step records and two evaluations in train_log.jsonl,
+           both checkpoints written, launch counts set to 0 just before
+           and read just after (K1-K5 and the index 4 each, plus K1 and K3
+           once per evaluated scene); the first and steady step times, the
+           evaluations' predict times and the saves' times
+  launch_test
+           the test launcher in process from that `best` checkpoint on 3
+           synthetic 80-view scenes in float32: the weights it loaded are
+           the trained ones (a head parameter equal to `best`'s and unlike
+           the untrained one), the metric dict has mAP_0.25, mAP_0.50,
+           psnr, ssim, predict_s_first and predict_s_per_scene, K1 and K3
+           launched once per scene; then the same evaluation with the
+           kernels and with the plain versions, cuDNN deterministic
+           (`launch_test_vs_plain`): every AP equal, psnr and ssim within
+           1e-4 relative; then `--arkit` on 2 scenes in bf16: 7-dim boxes
+           reach the mAP, the same keys, K1 and K3 (bf16) once per scene
   cull     the compositor kernels' own cull boxes (`cull_boxes`) on the
            tables the predict and the training step gave K1, taken through
            the recorders: the slots `cull_boxes_reference` keeps, boxes
@@ -150,6 +172,7 @@ import dataclasses
 import json
 import math
 import statistics
+import shutil
 import subprocess
 import sys
 import time
@@ -165,6 +188,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
 N_SCENES = 3
 TRAIN_STEPS = 3
+LAUNCH_STEPS = 4
 # ~5 ms of device time at the H100's 1.98 GHz boost clock: more than the
 # host takes to enqueue one trial of `cuda_ms`
 QUEUE_AHEAD_CYCLES = 10_000_000
@@ -559,7 +583,9 @@ def main(argv=None) -> int:
 
     from mvsdet_torch.config import arkit_config, scannet_config
     from mvsdet_torch.data.synthetic import make_synthetic_scene
+    from mvsdet_torch.evaluation import harness
     from mvsdet_torch.evaluation.harness import make_predict_fn
+    from mvsdet_torch.evaluation.indoor_eval import indoor_map
     from mvsdet_torch.models.mvsdet import build_model
     from mvsdet_torch.ops import (build, lift_kernel, splat_kernel,
                                   splat_tiles, voxel_lift)
@@ -572,7 +598,10 @@ def main(argv=None) -> int:
                                                composite_tiles_bwd,
                                                composite_tiles_bwd_reference,
                                                composite_tiles_reference)
-    from mvsdet_torch.training.loop import create_train_state, fit
+    from mvsdet_torch.tools import test as test_launcher
+    from mvsdet_torch.tools import train as train_launcher
+    from mvsdet_torch.training.loop import (create_predict_state,
+                                            create_train_state, fit)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1080,6 +1109,154 @@ def main(argv=None) -> int:
         del model
         torch.cuda.empty_cache()
 
+    def launch_phases():
+        """The launchers as a user runs them, in process: `train` for
+        LAUNCH_STEPS bf16 steps on two synthetic scenes (an epoch of two
+        steps, each epoch ending in a save and an evaluation of one 80-view
+        scene), then `test` from its `best` checkpoint on N_SCENES scenes,
+        against the same with the plain versions, and `test --arkit` in
+        bf16.  Each is driven with the launch counts set to 0 just before
+        and read just after."""
+        work = Path(__file__).resolve().parent / "build" / "launch"
+        shutil.rmtree(work, ignore_errors=True)
+        reset_launches()
+        state = train_launcher.main([
+            "--synthetic", "2", "--steps", str(LAUNCH_STEPS),
+            "--val-synthetic", "1", "--dtype", "bfloat16", "--log-every", "1",
+            "--work-dir", str(work)])
+        launches, bf16_launches = read_launches()
+        with open(work / "train_log.jsonl") as f:
+            log = [json.loads(line) for line in f]
+        steps = [r for r in log if "loss" in r]
+        evals = [r["eval"] for r in log if "eval" in r]
+        saves = [r for r in log if "saved" in r]
+        # a step's time: from the end of the record before it, where that
+        # is a step too (an evaluation or a save lies between the others)
+        step_ms = [(b["time"] - a["time"]) * 1e3
+                   for a, b in zip(log, log[1:]) if "loss" in a and "loss" in b]
+        n_evals = LAUNCH_STEPS // 2
+        emit(phase="launch_train", dtype="bfloat16", steps=len(steps),
+             views=cfg.data.n_src_train,
+             targets=cfg.data.nerf_target_views_train,
+             first_step_ms=steps[0]["time"] * 1e3, steady_step_ms=step_ms,
+             eval_predict_s=[e["predict_s_first"] for e in evals],
+             eval_map_025=[e["mAP_0.25"] for e in evals],
+             save_s={f"{r['saved']}@{r['step']}": r["save_s"] for r in saves},
+             losses=[r["loss"] for r in steps], launches=launches,
+             bf16_launches=bf16_launches)
+        check(len(steps) == LAUNCH_STEPS and all(
+            np.isfinite(v) for r in steps for v in r.values()),
+              f"launch_train: step records {steps}")
+        check(len(evals) == n_evals and all("mAP_0.25" in e for e in evals),
+              f"launch_train: evaluations {evals}")
+        check((work / "latest").is_file() and (work / "best").is_file(),
+              "launch_train: latest or best was not written")
+        check(state.step == LAUNCH_STEPS, f"launch_train: at step {state.step}")
+        # each step launches every kernel once; each evaluation's predict
+        # K1 and K3 once (bf16: K3, K4 and K5 as their bf16 variants)
+        per_eval = ("composite_tiles", "weighted_gather_sum")
+        check_launches(
+            launches, bf16_launches,
+            {name: LAUNCH_STEPS + n_evals * (name in per_eval)
+             for name in launches},
+            {"weighted_gather_sum": LAUNCH_STEPS + n_evals,
+             "weighted_gather_sum_dfeat": LAUNCH_STEPS,
+             "weighted_gather_sum_dweight": LAUNCH_STEPS},
+            "launch_train")
+        del state
+        torch.cuda.empty_cache()
+
+        # -- test from `best`: the trained weights, the kernels' metrics
+        # against the plain versions' --------------------------------------
+        argv = ["--synthetic", str(N_SCENES), "--checkpoint",
+                str(work / "best")]
+        models = []
+
+        def recording_state(*args, **kwargs):
+            models.append(create_predict_state(*args, **kwargs))
+            return models[-1]
+
+        reset_launches()
+        with mock.patch.object(test_launcher, "create_predict_state",
+                               recording_state):
+            results = test_launcher.main(argv)
+        launches, bf16_launches = read_launches()
+        name = "head.conv_cls.weight"
+        best = torch.load(work / "best", map_location="cuda",
+                          weights_only=True)["model"][name]
+        loaded = models[0].state_dict()[name]
+        untrained = build_model(cfg, device="cuda").state_dict()[name]
+        emit(phase="launch_test", dtype="float32", scenes=N_SCENES,
+             views=cfg.data.n_src_test, results=results, launches=launches,
+             bf16_launches=bf16_launches,
+             trained_weights_loaded=torch.equal(loaded, best),
+             weights_moved_in_training=not torch.equal(best, untrained))
+        check(torch.equal(loaded, best) and not torch.equal(best, untrained),
+              f"launch_test: {name} is not the trained one")
+        keys = {"mAP_0.25", "mAP_0.50", "psnr", "ssim", "predict_s_first",
+                "predict_s_per_scene"}
+        check(keys <= set(results), f"launch_test: missing "
+                                    f"{keys - set(results)}")
+        check_launches(launches, bf16_launches,
+                       {name: N_SCENES * (name in per_eval)
+                        for name in launches},
+                       {name: 0 for name in bf16_launches}, "launch_test")
+        # the same evaluation with the kernels and with the plain versions,
+        # cuDNN deterministic, as `predict_vs_plain` swaps them
+        torch.backends.cudnn.deterministic = True
+        runs = {}
+        for run, lift_fn, comp_fn in (
+                ("kernel", weighted_gather_sum, composite_tiles),
+                ("plain", weighted_gather_sum_reference,
+                 composite_tiles_reference)):
+            with mock.patch.object(voxel_lift, "weighted_gather_sum",
+                                   lift_fn), \
+                    mock.patch.object(splat_tiles, "composite_tiles",
+                                      comp_fn):
+                runs[run] = test_launcher.main(argv)
+        torch.backends.cudnn.deterministic = False
+        kernel, plain = runs["kernel"], runs["plain"]
+        aps = sorted(k for k in plain if k.startswith(("AP_", "mAP", "mAR")))
+        ap_equal = set(kernel) == set(plain) and all(
+            kernel[k] == plain[k] for k in aps)
+        nvs_rel = {k: abs(kernel[k] - plain[k]) / abs(plain[k])
+                   for k in ("psnr", "ssim")}
+        emit(phase="launch_test_vs_plain", aps_equal=ap_equal,
+             nvs_rel_err=nvs_rel, kernel={k: kernel[k] for k in aps[-4:]},
+             plain={k: plain[k] for k in aps[-4:]})
+        check(ap_equal, f"launch_test: APs differ from the plain versions': "
+                        f"{kernel} against {plain}")
+        check(max(nvs_rel.values()) <= 1e-4,
+              f"launch_test: psnr/ssim differ from the plain versions' by "
+              f"{nvs_rel}")
+
+        # -- test --arkit in bf16: the rotated mAP ----------------------------
+        arkit_dims = []
+
+        def recording_map(preds, gts, **kwargs):
+            arkit_dims.extend(p["boxes"].shape[-1] for p in preds + gts)
+            return indoor_map(preds, gts, **kwargs)
+
+        reset_launches()
+        with mock.patch.object(harness, "indoor_map", recording_map):
+            results = test_launcher.main(["--arkit", "--synthetic", "2",
+                                          "--dtype", "bfloat16"])
+        launches, bf16_launches = read_launches()
+        emit(phase="launch_test", config="arkit", dtype="bfloat16", scenes=2,
+             views=arkit.data.n_src_test, results=results,
+             box_dims=sorted(set(arkit_dims)), launches=launches,
+             bf16_launches=bf16_launches)
+        check(keys <= set(results), f"launch_test --arkit: missing "
+                                    f"{keys - set(results)}")
+        check(set(arkit_dims) == {7}, f"launch_test --arkit: boxes of "
+                                      f"{set(arkit_dims)} dims reached the mAP")
+        check_launches(launches, bf16_launches,
+                       {name: 2 * (name in per_eval) for name in launches},
+                       {name: 2 * (name == "weighted_gather_sum")
+                        for name in bf16_launches}, "launch_test --arkit")
+        del models
+        torch.cuda.empty_cache()
+
     scenes = [make_synthetic_scene(cfg, seed=s, n_views=cfg.data.n_src_test,
                                    n_targets=cfg.data.nerf_target_views_test)
               for s in range(N_SCENES)]
@@ -1118,6 +1295,7 @@ def main(argv=None) -> int:
     del scenes, arkit_scene, grads32
 
     batch_norm_phases(scene)
+    launch_phases()
 
     # -- kernels line ----------------------------------------------------
     args = {name: detached(r.args) for name, (_, r) in recorders.items()}

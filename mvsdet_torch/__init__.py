@@ -15,10 +15,22 @@ first use, bound with ctypes):
 Each kernel's wrapper launches the kernel for CUDA tensors and runs its
 plain PyTorch version (same module) for CPU tensors.  Entry points:
 `models.mvsdet.build_model(cfg)` and `evaluation.harness.make_predict_fn`
-to serve, `training.loop.create_train_state` and `fit` to train, all on
-the card unless the caller asks for the CPU, and all computing in float32
+to serve, `training.loop.create_train_state` and `fit` to train, and the
+launchers `python -m mvsdet_torch.tools.train` and `...tools.test` over
+real-format data (`data/`, `evaluation/`), all on the card unless the
+caller asks for the CPU, and all computing in float32
 or, given `dtype=torch.bfloat16`, in bf16 as the JAX package's `dtype`
 does (parameters and optimizer state float32).  The layout mirrors the JAX
 package so each module's counterpart is found by path.  This package
 imports nothing of JAX or of `mvsdet_tpu`.
 """
+
+import torch as _torch
+
+# On the CPU, the first `torch.exp` of a process, split over OpenMP
+# threads on a loaded machine (6 test workers of 8 threads on 8 cores),
+# has returned one thread's share up to 1,772 ulp (1.5e-4 relative) off,
+# while every later call was exact: a set-up on first use that the threads
+# race through.  One call here, too small to be split, does that set-up on
+# this thread first (ROADMAP T23).
+_torch.exp(_torch.zeros(1))

@@ -40,6 +40,16 @@ def full_projection(w2c: torch.Tensor, intrinsic: torch.Tensor) -> torch.Tensor:
     return feinsum("nij,njk->nik", intrinsic, w2c)
 
 
+def top_k_indices(sim: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of the k largest values of each row, the lower index
+    first among equal values, as `jax.lax.top_k` orders them: a stable
+    descending sort.  `torch.topk` promises no order among ties, and
+    cameras tie in distance on a symmetric rig and whenever a scene with
+    fewer frames than views repeats a view (ROADMAP F2)."""
+    return torch.sort(sim, dim=-1, descending=True, stable=True).indices[
+        ..., :k]
+
+
 def knn_camera_neighbors(positions: torch.Tensor, k: int) -> torch.Tensor:
     """Indices of the k nearest cameras (by centre distance) per camera.
 
@@ -53,7 +63,7 @@ def knn_camera_neighbors(positions: torch.Tensor, k: int) -> torch.Tensor:
     sim = 2.0 * positions @ positions.T - sq[:, None] - sq[None, :]
     n = positions.shape[0]
     sim = sim - torch.eye(n, dtype=sim.dtype, device=sim.device) * 1e5
-    return torch.topk(sim, k, dim=-1).indices
+    return top_k_indices(sim, k)
 
 
 def nearest_pose_ids(tar_c2w: torch.Tensor, ref_c2w: torch.Tensor,
@@ -72,4 +82,4 @@ def nearest_pose_ids(tar_c2w: torch.Tensor, ref_c2w: torch.Tensor,
     sq_t = torch.sum(tar**2, dim=-1)
     sq_r = torch.sum(ref**2, dim=-1)
     sim = 2.0 * tar @ ref.T - sq_t[:, None] - sq_r[None, :]
-    return torch.topk(sim, num_select, dim=-1).indices
+    return top_k_indices(sim, num_select)

@@ -400,10 +400,12 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 def build_model(cfg: Config, device="cuda",
                 generator: Optional[torch.Generator] = None,
-                dtype: torch.dtype = torch.float32) -> MVSDet:
+                dtype: torch.dtype = torch.float32,
+                sweep_chunk: int = 8) -> MVSDet:
     """An eval-mode `MVSDet` for ``cfg`` computing in ``dtype``, with random
     float32 weights from ``generator`` (default: seeded with
-    ``cfg.seed``), on ``device``.
+    ``cfg.seed``), on ``device``; its plane sweep runs ``sweep_chunk``
+    reference views at a time.
 
     Runs on the card unless the caller asks for the CPU; raises when CUDA
     is missing and ``device="cpu"`` was not asked for.
@@ -412,7 +414,7 @@ def build_model(cfg: Config, device="cuda",
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the port runs on the "
                            "card; pass device='cpu' to run it on the CPU")
-    model = MVSDet(cfg.model, dtype=dtype)
+    model = MVSDet(cfg.model, sweep_chunk=sweep_chunk, dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

@@ -7,12 +7,15 @@ names follow the JAX parameter tree (`stem_conv`, `layer1_block0.conv1`,
 ...).  `frozen_stages=1` freezes the stem and layer1: their parameters
 take no gradient and layer1's output is detached, so no backward runs
 through them (mvsdet_tpu/models/resnet.py:100-103).
+`load_torchvision_checkpoint` and `port_torchvision_state_dict` read
+ImageNet weights saved under torchvision's names.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -90,3 +93,53 @@ class ResNet50(nn.Module):
                 x = x.detach()      # both this output and the next stage
             outs.append(x)
         return tuple(outs)
+
+
+def load_torchvision_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """Read a torchvision-format checkpoint file into a flat name -> tensor
+    dict (mvsdet_tpu/models/resnet.py:109-125).
+
+    Accepts a torch-saved ``.pth``/``.pt`` (optionally wrapped in a
+    ``state_dict`` key, as mm checkpoints are) or a numpy ``.npz`` with
+    torchvision parameter names: the file the reference downloads as
+    ``torchvision://resnet50`` (ref: projects/NeRF-Det/configs/
+    mvsdet_res50_2x_low_res_depth.py:25).
+    """
+    if path.endswith(".npz"):
+        with np.load(path) as npz:
+            return {k: torch.from_numpy(npz[k]) for k in npz.files}
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return {k: torch.as_tensor(v) for k, v in obj.items()}
+
+
+def port_torchvision_state_dict(state_dict: Dict[str, torch.Tensor],
+                                depth: int = 50) -> Dict[str, torch.Tensor]:
+    """torchvision ResNet names -> this module's state-dict names
+    (mvsdet_tpu/models/resnet.py:128-174).
+
+    The layouts agree (OIHW convolutions; a frozen BN keeps torchvision's
+    weight, bias, running_mean and running_var), so only the names change:
+    ``conv1``/``bn1`` -> ``stem_conv``/``stem_bn``, ``layer{s}.{b}.`` ->
+    ``layer{s}_block{b}.``, ``downsample.0``/``.1`` ->
+    ``downsample_conv``/``downsample_bn``.  BN's ``num_batches_tracked``
+    (nothing reads it) is dropped; a name the mapping expects and the
+    dict lacks raises KeyError.
+    """
+    bn_keys = ("weight", "bias", "running_mean", "running_var")
+    names = {"stem_conv.weight": "conv1.weight"}
+    names.update({f"stem_bn.{k}": f"bn1.{k}" for k in bn_keys})
+    for stage, n_blocks in enumerate(STAGE_BLOCKS[depth]):
+        for b in range(n_blocks):
+            tv, ours = f"layer{stage + 1}.{b}", f"layer{stage + 1}_block{b}"
+            for i in (1, 2, 3):
+                names[f"{ours}.conv{i}.weight"] = f"{tv}.conv{i}.weight"
+                names.update({f"{ours}.bn{i}.{k}": f"{tv}.bn{i}.{k}"
+                              for k in bn_keys})
+            if f"{tv}.downsample.0.weight" in state_dict:
+                names[f"{ours}.downsample_conv.weight"] = \
+                    f"{tv}.downsample.0.weight"
+                names.update({f"{ours}.downsample_bn.{k}":
+                              f"{tv}.downsample.1.{k}" for k in bn_keys})
+    return {ours: torch.as_tensor(state_dict[tv]) for ours, tv in names.items()}

@@ -7,7 +7,9 @@ global-norm clip, AdamW, and the MultiStepLR step.  It reads nothing back
 to the host; its metrics stay device tensors.  `fit` drives it over a
 batch iterator staged one ahead on a thread (`data/prefetch.py`).
 Checkpoints are `torch.save` files of the model, optimizer, scheduler and
-step.
+step; `create_predict_state` builds an eval model from one (the test
+launcher's), and `load_pretrained_backbone` swaps ImageNet weights into a
+train state's ResNet.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import torch
 
 from mvsdet_torch.config import Config
 from mvsdet_torch.data.prefetch import prefetch_iterator, stage_batch
-from mvsdet_torch.models.mvsdet import MVSDet, init_weights
+from mvsdet_torch.models.mvsdet import MVSDet, build_model, init_weights
+from mvsdet_torch.models.resnet import (load_torchvision_checkpoint,
+                                        port_torchvision_state_dict)
 from mvsdet_torch.training.optim import build_optimizer, clip_by_global_norm_
 
 
@@ -139,4 +143,60 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.scheduler.load_state_dict(ckpt["scheduler"])
     state.step = int(ckpt["step"])
+    return state
+
+
+def create_predict_state(cfg: Config, checkpoint: Optional[str] = None,
+                         device="cuda", dtype: torch.dtype = torch.float32,
+                         sweep_chunk: int = 8,
+                         generator: Optional[torch.Generator] = None
+                         ) -> MVSDet:
+    """An eval-mode model for predict (mvsdet_tpu/training/loop.py:132-170):
+    no optimizer.  With ``checkpoint`` (a `save_checkpoint` file) the
+    weights are its model part, read on the host and copied to the model;
+    without one they are random from ``generator`` (default: seeded with
+    ``cfg.seed``), as `build_model` draws them.
+
+    Runs on the card unless the caller asks for the CPU; raises when CUDA
+    is missing and ``device="cpu"`` was not asked for.
+    """
+    model = build_model(cfg, device=device, generator=generator, dtype=dtype,
+                        sweep_chunk=sweep_chunk)
+    if checkpoint is not None:
+        ckpt = torch.load(checkpoint, map_location="cpu", weights_only=True)
+        model.load_state_dict(ckpt["model"])
+    return model
+
+
+def load_pretrained_backbone(state: TrainState, path: str) -> TrainState:
+    """Load ImageNet-pretrained ResNet weights into ``state``'s backbone
+    (mvsdet_tpu/training/loop.py:173-205).
+
+    The reference initialises its backbone from ``torchvision://resnet50``
+    (ref: projects/NeRF-Det/configs/mvsdet_res50_2x_low_res_depth.py:25);
+    here the equivalent is an explicit checkpoint file (``.pth`` or
+    ``.npz`` with torchvision names; names the ResNet does not have, such
+    as the classifier's ``fc.*``, are not read).  The optimizer state is
+    untouched: the shapes are the same and AdamW's moments start at zero
+    either way.  Updates ``state`` in place and returns it.
+
+    Raises ValueError when the file's names or shapes do not match the
+    backbone exactly.
+    """
+    backbone = state.model.backbone
+    ours = backbone.state_dict()
+    try:
+        ported = port_torchvision_state_dict(
+            load_torchvision_checkpoint(path), state.model.cfg.backbone.depth)
+    except KeyError as exc:
+        raise ValueError(f"pretrained backbone {path} lacks {exc}") from exc
+    want = {k: tuple(v.shape) for k, v in ours.items()}
+    got = {k: tuple(v.shape) for k, v in ported.items()}
+    if want != got:
+        diff = sorted(k for k in want.keys() | got.keys()
+                      if want.get(k) != got.get(k))
+        raise ValueError(f"pretrained backbone {path} does not fit the "
+                         f"model's ({len(diff)} names differ in presence or "
+                         f"shape, first {diff[:5]})")
+    backbone.load_state_dict(ported)
     return state

@@ -75,6 +75,28 @@ class TestCameras:
         got = cameras.nearest_pose_ids(T(tgt), T(c2w), k)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
+    @pytest.mark.parametrize("seed", range(4))
+    def test_neighbour_indices_equal_on_ties(self, seed):
+        """Cameras at equal distances: a symmetric ring (12 views at equal
+        angles, as the real-format fixtures orbit) sampled with repeats,
+        as the pipeline repeats views of a scene shorter than its view
+        count.  `torch.topk` broke these ties unlike `jax.lax.top_k`."""
+        ang = 2 * np.pi * np.arange(12) / 12
+        ring = np.stack([2.2 * np.cos(ang), 2.2 * np.sin(ang),
+                         1.4 + 0.2 * np.sin(2 * ang)], -1)
+        rng = np.random.RandomState(seed)
+        pos = ring[rng.choice(12, 16)].astype(np.float32)
+        c2w = np.tile(np.eye(4, dtype=np.float32), (16, 1, 1))
+        c2w[:, :3, 3] = pos
+        for k in (2, 3):
+            want = jx_cameras.knn_camera_neighbors(jnp.asarray(pos), k)
+            got = cameras.knn_camera_neighbors(T(pos), k)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            want = jx_cameras.nearest_pose_ids(jnp.asarray(c2w[:2]),
+                                               jnp.asarray(c2w), k)
+            got = cameras.nearest_pose_ids(T(c2w[:2]), T(c2w), k)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
 
 class TestVoxelsAndRays:
     def test_voxel_points(self):

@@ -30,6 +30,13 @@ from mvsdet_torch.models import layers
 from mvsdet_torch.models.mvsdet import MVSDet, build_model
 
 REPO = Path(__file__).resolve().parents[1]
+# the real-format data path, the metrics and the launchers: imported by the
+# walk below like every other module, named here so that none is skipped
+M13_MODULES = (
+    "mvsdet_torch.data.infos", "mvsdet_torch.data.native_loader",
+    "mvsdet_torch.data.pipeline", "mvsdet_torch.evaluation.indoor_eval",
+    "mvsdet_torch.evaluation.nvs_metrics", "mvsdet_torch.evaluation.harness",
+    "mvsdet_torch.tools.train", "mvsdet_torch.tools.test")
 
 
 def _leaf(path, shape, rng):
@@ -197,7 +204,9 @@ class TestEntryPoints:
             "import chip_smoke\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mvsdet_tpu')]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            f"missing = [m for m in {M13_MODULES!r} if m not in sys.modules]\n"
+            "assert not missing, missing\n")
         env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
                "JAX_PLATFORMS": "cpu"}
         result = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -216,3 +225,6 @@ class TestEntryPoints:
                for i, line in enumerate(path.read_text().splitlines(), 1)
                if pattern.match(line)]
         assert len(sources) > 20 and not bad, bad
+        scanned = {str(p.relative_to(REPO).with_suffix("")).replace("/", ".")
+                   for p in sources}
+        assert set(M13_MODULES) <= scanned
