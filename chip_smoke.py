@@ -115,9 +115,13 @@ Phases, each printed as one JSON line:
            psnr, ssim, predict_s_first and predict_s_per_scene, K1 and K3
            launched once per scene; then the same evaluation with the
            kernels and with the plain versions, cuDNN deterministic
-           (`launch_test_vs_plain`): every AP equal, psnr and ssim within
-           1e-4 relative; then `--arkit` on 2 scenes in bf16: 7-dim boxes
-           reach the mAP, the same keys, K1 and K3 (bf16) once per scene
+           (`launch_test_vs_plain`), from a copy of `best` whose head is
+           tuned to detect (boxes of about a sphere's size, the scenes'
+           most common class leading): mAP_0.25 above 0, the boxes,
+           scores and labels the mAP is given equal (boxes and scores to
+           1e-5), every AP equal, psnr and ssim within 1e-4 relative; then
+           `--arkit` on 2 scenes in bf16: 7-dim boxes reach the mAP, the
+           same keys, K1 and K3 (bf16) once per scene
   cull     the compositor kernels' own cull boxes (`cull_boxes`) on the
            tables the predict and the training step gave K1, taken through
            the recorders: the slots `cull_boxes_reference` keeps, boxes
@@ -345,6 +349,29 @@ def cull_check(data: torch.Tensor, tiles_x: int) -> dict:
                 listed_per_cta_max=float(listed_cta.max()),
                 active_per_cta_mean=float(active_cta.mean()),
                 active_per_cta_max=float(active_cta.max()))
+
+
+def detecting_head(model_state: dict, cfg) -> dict:
+    """``model_state`` with a head that finds the test launcher's synthetic
+    spheres (seeds 1000 + s), as the CPU launcher test tunes it: every face
+    distance is exp(0.05 * conv_reg(x)) with conv_reg's kernel negative
+    (the neck's output is a ReLU's), boxes of about a sphere's size, and
+    the scenes' most common class leads every voxel's logits, with the
+    random kernel's small share left to order the scores."""
+    from mvsdet_torch.data.synthetic import make_synthetic_scene
+
+    labels = np.concatenate([
+        scene["gt_labels"][scene["gt_mask"]] for scene in (
+            make_synthetic_scene(cfg, seed=1000 + s, n_views=1, n_targets=1)
+            for s in range(N_SCENES))])
+    out = dict(model_state)
+    out["head.conv_reg.weight"] = -model_state["head.conv_reg.weight"].abs()
+    out["head.scales"] = torch.full_like(model_state["head.scales"], 0.05)
+    bias = torch.full_like(model_state["head.conv_cls.bias"], -6.0)
+    bias[int(np.bincount(labels).argmax())] = 1.0
+    out["head.conv_cls.bias"] = bias
+    out["head.conv_cls.weight"] = model_state["head.conv_cls.weight"] * 0.05
+    return out
 
 
 def check_cull(cull: dict, tables: str):
@@ -1202,17 +1229,29 @@ def main(argv=None) -> int:
                         for name in launches},
                        {name: 0 for name in bf16_launches}, "launch_test")
         # the same evaluation with the kernels and with the plain versions,
-        # cuDNN deterministic, as `predict_vs_plain` swaps them
+        # cuDNN deterministic, as `predict_vs_plain` swaps them, from a head
+        # that detects: briefly trained or random weights give an mAP of 0,
+        # which any fault upstream of the head would give too
+        argv = ["--synthetic", str(N_SCENES), "--checkpoint",
+                str(work / "detecting")]
+        torch.save({"model": detecting_head(
+            torch.load(work / "best", map_location="cpu",
+                       weights_only=True)["model"], cfg)}, work / "detecting")
         torch.backends.cudnn.deterministic = True
-        runs = {}
+        runs, scored = {}, {}
         for run, lift_fn, comp_fn in (
                 ("kernel", weighted_gather_sum, composite_tiles),
                 ("plain", weighted_gather_sum_reference,
                  composite_tiles_reference)):
+            def scoring_map(preds, gts, run=run, **kwargs):
+                scored[run] = preds
+                return indoor_map(preds, gts, **kwargs)
+
             with mock.patch.object(voxel_lift, "weighted_gather_sum",
                                    lift_fn), \
                     mock.patch.object(splat_tiles, "composite_tiles",
-                                      comp_fn):
+                                      comp_fn), \
+                    mock.patch.object(harness, "indoor_map", scoring_map):
                 runs[run] = test_launcher.main(argv)
         torch.backends.cudnn.deterministic = False
         kernel, plain = runs["kernel"], runs["plain"]
@@ -1221,9 +1260,24 @@ def main(argv=None) -> int:
             kernel[k] == plain[k] for k in aps)
         nvs_rel = {k: abs(kernel[k] - plain[k]) / abs(plain[k])
                    for k in ("psnr", "ssim")}
+        # the boxes, scores and labels the mAP was given, scene by scene
+        pairs = list(zip(scored["kernel"], scored["plain"]))
+        preds_equal = len(pairs) == N_SCENES and all(
+            np.array_equal(a["labels"], b["labels"])
+            and np.allclose(a["boxes"], b["boxes"], rtol=1e-5, atol=1e-5)
+            and np.allclose(a["scores"], b["scores"], rtol=1e-5, atol=1e-5)
+            for a, b in pairs)
         emit(phase="launch_test_vs_plain", aps_equal=ap_equal,
              nvs_rel_err=nvs_rel, kernel={k: kernel[k] for k in aps[-4:]},
-             plain={k: plain[k] for k in aps[-4:]})
+             plain={k: plain[k] for k in aps[-4:]},
+             boxes_per_scene=[len(b["labels"]) for _, b in pairs],
+             preds_equal=preds_equal)
+        check(preds_equal, "launch_test: the boxes, scores or labels given "
+                           "to the mAP differ from the plain versions' "
+                           "(1e-5)")
+        check(plain["mAP_0.25"] > 0, f"launch_test: the tuned head detects "
+                                     f"nothing ({plain}), so the APs' "
+                                     f"equality would hold trivially")
         check(ap_equal, f"launch_test: APs differ from the plain versions': "
                         f"{kernel} against {plain}")
         check(max(nvs_rel.values()) <= 1e-4,

@@ -27,10 +27,13 @@ imports nothing of JAX or of `mvsdet_tpu`.
 
 import torch as _torch
 
-# On the CPU, the first `torch.exp` of a process, split over OpenMP
+# On the CPU, torch hands float exp, log and tanh to MKL's VML
+# (ATen/cpu/vml.h).  The first such call of a process, split over OpenMP
 # threads on a loaded machine (6 test workers of 8 threads on 8 cores),
 # has returned one thread's share up to 1,772 ulp (1.5e-4 relative) off,
-# while every later call was exact: a set-up on first use that the threads
-# race through.  One call here, too small to be split, does that set-up on
-# this thread first (ROADMAP T23).
+# while every later call was exact; sigmoid, which VML does not compute,
+# never did.  One exp here, of one element, which no
+# thread splits, runs that first call on this thread, and the later first
+# calls of exp, log and tanh are exact: measured with
+# `python -m mvsdet_torch.tools.cpu_first_call` (ROADMAP T23).
 _torch.exp(_torch.zeros(1))

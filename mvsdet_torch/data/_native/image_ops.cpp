@@ -2,10 +2,9 @@
 //
 // The port's copy of mvsdet_tpu/data/_native/image_ops.cpp (the
 // reference's C-backed image IO, mmcv imread/imresize, used in
-// multiview_pipeline.py:193-220 and the per-view load loop :478-516),
-// plus `mvsdet_resize_f32` for depth maps stored as .npy.  Exposed to
-// python through a plain C ABI (ctypes), with a std::thread pool for batch
-// loading: each MVSDet scene reads 40-100 JPEGs.
+// multiview_pipeline.py:193-220 and the per-view load loop :478-516).
+// Exposed to python through a plain C ABI (ctypes), with a std::thread pool
+// for batch loading: each MVSDet scene reads 40-100 JPEGs.
 //
 // Built at first use by mvsdet_torch/data/native_loader.py:
 //   g++ -O3 -shared -fPIC image_ops.cpp -o <build>/libimage_ops-<hash>.so \
@@ -231,13 +230,6 @@ int mvsdet_load_batch_rgb(const char** paths, int n, int out_h, int out_w,
   int bad = 0;
   for (int e : errors) bad += (e != 0);
   return bad;
-}
-
-// Bilinear resize of a float32 (in_h, in_w) map to (out_h, out_w), as the
-// depth PNG path resizes (depth maps stored as .npy).
-void mvsdet_resize_f32(const float* src, int in_h, int in_w, float* out,
-                       int out_h, int out_w) {
-  resize_bilinear_f32(src, in_h, in_w, out, out_h, out_w);
 }
 
 }  // extern "C"

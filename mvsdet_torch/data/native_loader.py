@@ -87,10 +87,6 @@ def load() -> ctypes.CDLL:
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.restype, fn.argtypes = ctypes.c_int, argtypes
-            lib.mvsdet_resize_f32.restype = None
-            lib.mvsdet_resize_f32.argtypes = [_f32p, ctypes.c_int,
-                                              ctypes.c_int, _f32p,
-                                              ctypes.c_int, ctypes.c_int]
             _loaded.append(lib)
         return _loaded[0]
 
@@ -134,16 +130,3 @@ def load_batch_rgb(paths: List[str], hw: Tuple[int, int],
         raise IOError(f"{bad}/{n} images failed to decode")
     return out
 
-
-def resize_f32(img: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
-    """Bilinear resize of a 2D float map (at least 2x2) to (h, w), as
-    `load_depth_png` resizes."""
-    src = np.ascontiguousarray(img, np.float32)
-    if src.ndim != 2 or min(src.shape) < 2:
-        raise ValueError(f"resize_f32 takes a 2D map of at least 2x2, got "
-                         f"{src.shape}")
-    h, w = hw
-    out = np.empty((h, w), np.float32)
-    load().mvsdet_resize_f32(src.ctypes.data_as(_f32p), src.shape[0],
-                             src.shape[1], out.ctypes.data_as(_f32p), h, w)
-    return out

@@ -15,9 +15,10 @@ anisotropic intrinsic scaling (fx by the width ratio, fy by the height
 ratio), where the reference resizes keep-ratio and pads: geometry stays
 exact and every shape is static.
 
-Decoding: the port's native library (`data/native_loader.py`, g++ with
-libjpeg and libpng) where it builds, else cv2; where neither is there,
-`default_loaders` raises and names both.
+Image decoding: the port's native library (`data/native_loader.py`, g++
+with libjpeg and libpng) where it builds, else cv2; where neither is there,
+`default_image_loader` raises and names both.  Depth is read with cv2, as
+the JAX pipeline reads it.
 """
 
 from __future__ import annotations
@@ -114,20 +115,12 @@ def cv2_load_depth(path: str, hw: Tuple[int, int]) -> np.ndarray:
                       interpolation=cv2.INTER_LINEAR)
 
 
-def native_load_depth(path: str, hw: Tuple[int, int]) -> np.ndarray:
-    """Depth in metres from a mm png or an npy, with the native library."""
-    if path.endswith(".npy"):
-        return native_loader.resize_f32(np.load(path), hw)
-    return native_loader.load_depth_png(path, hw)
-
-
-def default_loaders() -> Tuple[Callable, Callable]:
-    """(image loader, depth loader): the native library's where it builds,
-    else cv2's.  Raises RuntimeError, naming both, where neither is
-    available."""
+def default_image_loader() -> Callable:
+    """The native library's image loader where it builds, else cv2's.
+    Raises RuntimeError, naming both, where neither is available."""
     try:
         native_loader.load()
-        return native_loader.load_resize_rgb, native_load_depth
+        return native_loader.load_resize_rgb
     except RuntimeError as exc:
         native_error = exc
     try:
@@ -136,7 +129,7 @@ def default_loaders() -> Tuple[Callable, Callable]:
         raise RuntimeError(
             f"no image decoder: the native library is not available "
             f"({native_error}) and cv2 cannot be imported ({exc})") from exc
-    return cv2_load_rgb, cv2_load_depth
+    return cv2_load_rgb
 
 
 def _scale_k_xy(k: np.ndarray, sx: float, sy: float) -> np.ndarray:
@@ -153,16 +146,13 @@ class ScenePipeline:
     cfg: Config
     training: bool = True
     load_depth: bool = False
-    # fn(path, (h, w)) -> (h, w, 3) uint8 RGB, and fn(path, (h, w)) ->
-    # (h, w) float32 metres; `default_loaders()` where not given
+    # fn(path, (h, w)) -> (h, w, 3) uint8 RGB; `default_image_loader()`
+    # where not given
     image_loader: Optional[Callable] = None
-    depth_loader: Optional[Callable] = None
 
     def __post_init__(self):
-        if self.image_loader is None or self.depth_loader is None:
-            rgb, depth = default_loaders()
-            self.image_loader = self.image_loader or rgb
-            self.depth_loader = self.depth_loader or depth
+        if self.image_loader is None:
+            self.image_loader = default_image_loader()
 
     def __call__(self, scene: SceneInfo,
                  rng: np.random.RandomState) -> Dict[str, np.ndarray]:
@@ -193,7 +183,7 @@ class ScenePipeline:
             src = np.concatenate([src, extra])
         src = src[:n_src]
 
-        load, load_depth = self.image_loader, self.depth_loader
+        load, load_depth = self.image_loader, cv2_load_depth
 
         imgs, denorms, depths = [], [], []
         for i in src:

@@ -6,16 +6,17 @@
     python -m mvsdet_torch.tools.train --tiny --synthetic 2 --steps 3 --device cpu
 
 Trains on one card (unless `--device cpu`): `create_train_state`, then
-`train_step` over the scenes staged one ahead on a thread
-(`data/prefetch.py`).  Each epoch ends with a save of `latest` and, with
-`--val-infos` or `--val-synthetic`, an evaluation whose best `mAP_0.25`
-is kept as `best` (the reference's val_cfg + CheckpointHook save_best,
-mvsdet_res50_2x_low_res.py:164-172).  Every record goes to
+one `training.loop.fit` per epoch, which stages the scenes one ahead on a
+thread (`data/prefetch.py`).  Each epoch ends with a save of `latest`
+and, with `--val-infos` or `--val-synthetic`, an evaluation whose best
+`mAP_0.25` is kept as `best` (the reference's val_cfg + CheckpointHook
+save_best, mvsdet_res50_2x_low_res.py:164-172).  Every record goes to
 `<work-dir>/train_log.jsonl`: step records (`step`, `time` in seconds
 since the first step began, read after the step's losses reach the
-host, and the loss terms), checkpoint saves (`saved`, `save_s`) and
-evaluations (`eval`, the metric dict).  `--resume` continues at the
-checkpoint's step.
+host, and the loss terms) for every `--log-every`-th step of an epoch
+and its last, checkpoint saves (`saved`, `save_s`) and evaluations
+(`eval`, the metric dict).  `--resume` continues at the checkpoint's
+step.
 
 Not accepted yet: `--model nerfdet` (legacy NeRF-Det) and
 `--data-parallel` / `--view-parallel` with multi-host, which wait for the
@@ -37,13 +38,12 @@ import torch
 from mvsdet_torch.config import Config, scannet_config, tiny_test_config
 from mvsdet_torch.data.infos import load_infos
 from mvsdet_torch.data.pipeline import ScenePipeline, scene_iterator
-from mvsdet_torch.data.prefetch import prefetch_iterator
 from mvsdet_torch.data.synthetic import make_synthetic_scene
 from mvsdet_torch.evaluation.harness import evaluate_scenes, make_predict_fn
-from mvsdet_torch.training.loop import (TrainState, create_train_state,
+from mvsdet_torch.training.loop import (TrainState, create_train_state, fit,
                                         load_checkpoint,
                                         load_pretrained_backbone,
-                                        save_checkpoint, train_step)
+                                        save_checkpoint)
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -81,7 +81,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="evaluate on N synthetic scenes each epoch")
     p.add_argument("--val-max-scenes", type=int, default=None)
     p.add_argument("--log-every", type=int, default=10,
-                   help="write a step record every N steps (and the last)")
+                   help="write a step record every N steps of an epoch "
+                        "(and its last)")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (the default; raises without a card) or "
                         "'cpu'")
@@ -170,29 +171,30 @@ def train(cfg: Config, args: argparse.Namespace) -> TrainState:
         save_checkpoint(os.path.join(args.work_dir, name), state)
         log({"step": step, "saved": name, "save_s": time.perf_counter() - t0})
 
-    it = prefetch_iterator(batches, device)
     t_start = time.perf_counter()
-    try:
-        for i in range(state.step, total_steps):
-            metrics = train_step(state, next(it))
-            if i % args.log_every == 0 or i == total_steps - 1:
-                values = {k: float(v) for k, v in metrics.items()}
-                log({"step": i, "time": time.perf_counter() - t_start,
-                     **values})
-            if (i + 1) % steps_per_epoch == 0 or i == total_steps - 1:
-                save("latest", i)
-                if do_eval:
-                    state.model.eval()
-                    results = evaluate_scenes(predict, val_iter(),
-                                              cfg.model.head.n_classes,
-                                              device=device)
-                    state.model.train()
-                    log({"step": i, "eval": results})
-                    if results.get("mAP_0.25", 0.0) > best_map:
-                        best_map = results["mAP_0.25"]
-                        save("best", i)
-    finally:
-        it.close()
+    while state.step < total_steps:
+        first = state.step
+        n = min(steps_per_epoch - first % steps_per_epoch,
+                total_steps - first)
+
+        def log_step(i, values, first=first):
+            log({"step": first + i, "time": time.perf_counter() - t_start,
+                 **values})
+
+        # islice: fit's prefetch thread draws nothing past the epoch's end
+        fit(state, itertools.islice(batches, n), n,
+            log_every=args.log_every, log_fn=log_step)
+        last = state.step - 1
+        save("latest", last)
+        if do_eval:
+            state.model.eval()
+            results = evaluate_scenes(predict, val_iter(),
+                                      cfg.model.head.n_classes, device=device)
+            state.model.train()
+            log({"step": last, "eval": results})
+            if results.get("mAP_0.25", 0.0) > best_map:
+                best_map = results["mAP_0.25"]
+                save("best", last)
     return state
 
 

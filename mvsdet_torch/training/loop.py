@@ -148,19 +148,17 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
 
 def create_predict_state(cfg: Config, checkpoint: Optional[str] = None,
                          device="cuda", dtype: torch.dtype = torch.float32,
-                         sweep_chunk: int = 8,
-                         generator: Optional[torch.Generator] = None
-                         ) -> MVSDet:
+                         sweep_chunk: int = 8) -> MVSDet:
     """An eval-mode model for predict (mvsdet_tpu/training/loop.py:132-170):
     no optimizer.  With ``checkpoint`` (a `save_checkpoint` file) the
     weights are its model part, read on the host and copied to the model;
-    without one they are random from ``generator`` (default: seeded with
-    ``cfg.seed``), as `build_model` draws them.
+    without one they are random, seeded with ``cfg.seed``, as `build_model`
+    draws them.
 
     Runs on the card unless the caller asks for the CPU; raises when CUDA
     is missing and ``device="cpu"`` was not asked for.
     """
-    model = build_model(cfg, device=device, generator=generator, dtype=dtype,
+    model = build_model(cfg, device=device, dtype=dtype,
                         sweep_chunk=sweep_chunk)
     if checkpoint is not None:
         ckpt = torch.load(checkpoint, map_location="cpu", weights_only=True)

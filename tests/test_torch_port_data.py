@@ -138,10 +138,6 @@ def test_decoded_bytes_equal_jax(datasets, jx_lib, hw):
     depth = paths[0][:-4] + ".png"
     got = native_loader.load_depth_png(depth, hw)
     np.testing.assert_array_equal(got, jx_lib.load_depth_png(depth, hw))
-    # an .npy of the same metres goes through the same resize
-    mm = cv2.imread(depth, cv2.IMREAD_UNCHANGED)
-    metres = mm.astype(np.float32) * np.float32(1e-3)
-    np.testing.assert_array_equal(native_loader.resize_f32(metres, hw), got)
 
 
 SAMPLER_CASES = [(seed, n_total) for seed in (0, 1, 2) for n_total in
@@ -180,26 +176,29 @@ def jx_cv2_rgb(path, hw):
     return jx_pipeline._imresize(jx_pipeline._imread_rgb(path), hw)
 
 
-@pytest.mark.parametrize("decoder", ["native", "cv2"])
+PORT_DECODERS = {"default": None, "native": native_loader.load_resize_rgb,
+                 "cv2": pipeline.cv2_load_rgb}
+
+
+@pytest.mark.parametrize("decoder", ["default", "native", "cv2"])
 @pytest.mark.parametrize("name,training", [("scannet", True),
                                            ("scannet", False),
                                            ("arkit", True), ("arkit", False)])
 def test_pipeline_batches_equal_jax(datasets, jx_lib, name, training,
                                     decoder):
-    """The JAX pipeline reads depth with cv2, so the port's does too here;
-    its native depth reader is held to the JAX library above."""
+    """Both pipelines read depth with cv2.  The port's default decoder is
+    the native library here (see the fallback test below), so its batches
+    are held to JAX's with the JAX package's native library."""
     root, pkl, cfg, jx_cfg = datasets[name]
     scenes = infos.load_infos(pkl, root, cfg.data.classes)
     load_depth = name == "scannet"
-    port = pipeline.ScenePipeline(
-        cfg, training=training, load_depth=load_depth,
-        image_loader=(native_loader.load_resize_rgb if decoder == "native"
-                      else pipeline.cv2_load_rgb),
-        depth_loader=pipeline.cv2_load_depth)
+    port = pipeline.ScenePipeline(cfg, training=training,
+                                  load_depth=load_depth,
+                                  image_loader=PORT_DECODERS[decoder])
     jx = jx_pipeline.ScenePipeline(
         jx_cfg, training=training, load_depth=load_depth,
-        image_loader=(jx_lib.load_resize_rgb if decoder == "native"
-                      else jx_cv2_rgb))
+        image_loader=(jx_cv2_rgb if decoder == "cv2"
+                      else jx_lib.load_resize_rgb))
     for i, scene in enumerate(scenes):
         got = port(scene, np.random.RandomState(10 + i))
         want = jx(scene, np.random.RandomState(10 + i))
@@ -246,14 +245,14 @@ def test_no_decoder_raises_and_names_both(monkeypatch):
     monkeypatch.setattr(native_loader, "load", no_build)
     monkeypatch.setitem(sys.modules, "cv2", None)        # import cv2 fails
     with pytest.raises(RuntimeError, match="native.*g\\+\\+.*cv2"):
-        pipeline.default_loaders()
+        pipeline.default_image_loader()
     with pytest.raises(RuntimeError, match="cv2"):
         pipeline.ScenePipeline(config.tiny_test_config())
 
 
 def test_decoder_falls_back_to_cv2_without_the_native_library(monkeypatch,
                                                                tmp_path):
-    assert pipeline.default_loaders()[0] is native_loader.load_resize_rgb
+    assert pipeline.default_image_loader() is native_loader.load_resize_rgb
     # a library built on another machine, linked against a libjpeg that
     # this one lacks, does not load: that is no native library either
     junk = tmp_path / "libimage_ops-elsewhere.so"
@@ -262,5 +261,4 @@ def test_decoder_falls_back_to_cv2_without_the_native_library(monkeypatch,
     monkeypatch.setattr(native_loader, "_loaded", [])
     with pytest.raises(RuntimeError, match="does not load"):
         native_loader.load()
-    assert pipeline.default_loaders() == (pipeline.cv2_load_rgb,
-                                          pipeline.cv2_load_depth)
+    assert pipeline.default_image_loader() is pipeline.cv2_load_rgb
