@@ -116,8 +116,8 @@ Phases, each printed as one JSON line:
            launched once per scene; then the same evaluation with the
            kernels and with the plain versions, cuDNN deterministic
            (`launch_test_vs_plain`), from a copy of `best` whose head is
-           tuned to detect (boxes of about a sphere's size, the scenes'
-           most common class leading): mAP_0.25 above 0, the boxes,
+           fitted in closed form to the scenes' spheres on its own neck
+           features (`detecting_head`): mAP_0.25 above 0, the boxes,
            scores and labels the mAP is given equal (boxes and scores to
            1e-5), every AP equal, psnr and ssim within 1e-4 relative; then
            `--arkit` on 2 scenes in bf16: 7-dim boxes reach the mAP, the
@@ -351,27 +351,106 @@ def cull_check(data: torch.Tensor, tiles_x: int) -> dict:
                 active_per_cta_max=float(active_cta.max()))
 
 
-def detecting_head(model_state: dict, cfg) -> dict:
-    """``model_state`` with a head that finds the test launcher's synthetic
-    spheres (seeds 1000 + s), as the CPU launcher test tunes it: every face
-    distance is exp(0.05 * conv_reg(x)) with conv_reg's kernel negative
-    (the neck's output is a ReLU's), boxes of about a sphere's size, and
-    the scenes' most common class leads every voxel's logits, with the
-    random kernel's small share left to order the scores."""
+def detecting_head(model, cfg):
+    """``model``'s state with a head fitted, in closed form, to find the
+    test launcher's synthetic spheres (seeds 1000 + s) from its own neck
+    features: briefly trained or random weights give an mAP of 0, which a
+    fault upstream of the head would give too.  Each head conv becomes a
+    ridge least-squares map from a voxel's 3x3x3 window of features, the
+    positives (the level-0 voxels within half a voxel of a sphere's
+    centre) weighted 100: conv_cls's to the one-hot class of that sphere
+    (zeros elsewhere), scaled so that a fit of 1 is a logit of 10 and one
+    of 0 a logit of -10 (below `score_thr`); conv_reg's to the log of that
+    sphere's radius (of the mean radius elsewhere), with unit scales, so
+    each face distance is exp of the fit; conv_center zero (centerness
+    0.5).
+
+    Returns (state, fit): ``fit`` says how well the positives were fitted.
+    """
     from mvsdet_torch.data.synthetic import make_synthetic_scene
 
-    labels = np.concatenate([
-        scene["gt_labels"][scene["gt_mask"]] for scene in (
-            make_synthetic_scene(cfg, seed=1000 + s, n_views=1, n_targets=1)
-            for s in range(N_SCENES))])
-    out = dict(model_state)
-    out["head.conv_reg.weight"] = -model_state["head.conv_reg.weight"].abs()
-    out["head.scales"] = torch.full_like(model_state["head.scales"], 0.05)
-    bias = torch.full_like(model_state["head.conv_cls.bias"], -6.0)
-    bias[int(np.bincount(labels).argmax())] = 1.0
-    out["head.conv_cls.bias"] = bias
-    out["head.conv_cls.weight"] = model_state["head.conv_cls.weight"] * 0.05
-    return out
+    device = next(model.parameters()).device
+
+    def taps(x):
+        """(1, C, X, Y, Z) -> (XYZ, 27 C): each voxel's 3x3x3 window, in
+        the order of a 3x3x3 conv kernel's taps, zero-padded as the head's
+        convs pad."""
+        size = x.shape[2:]
+        xp = torch.nn.functional.pad(x[0].double(), (1, 1, 1, 1, 1, 1))
+        return torch.cat([
+            xp[:, i:i + size[0], j:j + size[1], k:k + size[2]].flatten(1)
+            for i in range(3) for j in range(3) for k in range(3)]).T
+
+    n_cls = cfg.model.head.n_classes
+    half = np.asarray(cfg.model.voxel_size) / 2 + 1e-6
+    feats, cls_t, reg_t, pos = [], [], [], []
+    for s in range(N_SCENES):
+        scene = make_synthetic_scene(
+            cfg, seed=1000 + s, n_views=cfg.data.n_src_test,
+            n_targets=cfg.data.nerf_target_views_test)
+        with torch.inference_mode():
+            out = model({k: torch.as_tensor(v, device=device)
+                         for k, v in scene.items()})
+        gt = scene["gt_boxes"][scene["gt_mask"]]
+        labels = scene["gt_labels"][scene["gt_mask"]]
+        radii = gt[:, 3:6].mean(axis=1) / 2
+        for level, (x, pts) in enumerate(zip(out["levels"], out["points"])):
+            feats.append(taps(x))                              # (V, 27 C)
+            near = np.zeros((pts.shape[0], len(gt)), bool)
+            if level == 0:
+                near = np.all(np.abs(pts.cpu().numpy()[:, None]
+                                     - gt[None, :, :3]) <= half, axis=-1)
+            hit = near.any(axis=1)
+            first = near.argmax(axis=1)
+            onehot = np.zeros((len(hit), n_cls))
+            onehot[hit, labels[first[hit]]] = 1.0
+            cls_t.append(onehot)
+            reg_t.append(np.where(hit, np.log(radii[first]), np.nan))
+            pos.append(hit)
+    x = torch.cat(feats)
+    pos = torch.as_tensor(np.concatenate(pos), device=device)
+    reg_t = np.concatenate(reg_t)
+    mean_log_r = float(np.log(np.mean(np.exp(reg_t[~np.isnan(reg_t)]))))
+    reg_t = torch.as_tensor(np.nan_to_num(reg_t, nan=mean_log_r),
+                            device=device)
+    cls_t = torch.as_tensor(np.concatenate(cls_t), device=device)
+
+    def ridge(a, b, row_weight=None):
+        if row_weight is not None:
+            a, b = a * row_weight[:, None], b * row_weight[:, None]
+        gram = a.T @ a
+        gram += 1e-6 * gram.diagonal().mean() * torch.eye(
+            gram.shape[0], dtype=gram.dtype, device=device)
+        return torch.linalg.solve(gram, a.T @ b)
+
+    xb = torch.cat([x, torch.ones_like(x[:, :1])], dim=1)
+    weight = torch.where(pos, 10.0, 1.0).double()
+    w_cls = ridge(xb, cls_t, weight)                      # (27 C + 1, n)
+    w_reg = ridge(x, reg_t[:, None], weight)              # (27 C, 1)
+    cls_fit = (xb @ w_cls).amax(dim=1)
+    reg_fit = (x @ w_reg)[:, 0]
+
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def kernel(w, n_out):
+        """(27 C, n) taps -> an (n_out, C, 3, 3, 3) conv kernel."""
+        return w.T.reshape(-1, 27, w.shape[0] // 27).permute(0, 2, 1) \
+            .reshape(-1, w.shape[0] // 27, 3, 3, 3).expand(n_out, -1, -1,
+                                                           -1, -1).float()
+
+    state["head.conv_center.weight"].zero_()
+    state["head.conv_cls.weight"][:] = kernel(20.0 * w_cls[:-1], n_cls)
+    state["head.conv_cls.bias"][:] = (20.0 * (w_cls[-1] - 0.5)).float()
+    state["head.conv_reg.weight"][:] = kernel(
+        w_reg, state["head.conv_reg.weight"].shape[0])
+    state["head.scales"].fill_(1.0)
+    fit = dict(positives=int(pos.sum()),
+               cls_fit_positive_min=float(cls_fit[pos].min()),
+               cls_fit_negative_max=float(cls_fit[~pos].max()),
+               negatives_above_half=int((cls_fit[~pos] > 0.5).sum()),
+               reg_fit_positive_abs_err=float(
+                   (reg_fit - reg_t)[pos].abs().max()))
+    return state, fit
 
 
 def check_cull(cull: dict, tables: str):
@@ -1230,13 +1309,12 @@ def main(argv=None) -> int:
                        {name: 0 for name in bf16_launches}, "launch_test")
         # the same evaluation with the kernels and with the plain versions,
         # cuDNN deterministic, as `predict_vs_plain` swaps them, from a head
-        # that detects: briefly trained or random weights give an mAP of 0,
-        # which any fault upstream of the head would give too
+        # fitted to detect these scenes
         argv = ["--synthetic", str(N_SCENES), "--checkpoint",
                 str(work / "detecting")]
-        torch.save({"model": detecting_head(
-            torch.load(work / "best", map_location="cpu",
-                       weights_only=True)["model"], cfg)}, work / "detecting")
+        tuned, fit = detecting_head(models[0], cfg)
+        torch.save({"model": tuned}, work / "detecting")
+        del tuned
         torch.backends.cudnn.deterministic = True
         runs, scored = {}, {}
         for run, lift_fn, comp_fn in (
@@ -1271,7 +1349,7 @@ def main(argv=None) -> int:
              nvs_rel_err=nvs_rel, kernel={k: kernel[k] for k in aps[-4:]},
              plain={k: plain[k] for k in aps[-4:]},
              boxes_per_scene=[len(b["labels"]) for _, b in pairs],
-             preds_equal=preds_equal)
+             preds_equal=preds_equal, head_fit=fit)
         check(preds_equal, "launch_test: the boxes, scores or labels given "
                            "to the mAP differ from the plain versions' "
                            "(1e-5)")
