@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's predict path and training step on one NVIDIA card, in
-the ScanNet and the ARKit configurations, and check them.
+the ScanNet and the ARKit configurations, alone and sharded over rank
+processes, and check them.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -122,6 +123,50 @@ Phases, each printed as one JSON line:
            1e-5), every AP equal, psnr and ssim within 1e-4 relative; then
            `--arkit` on 2 scenes in bf16: 7-dim boxes reach the mAP, the
            same keys, K1 and K3 (bf16) once per scene
+  parallel_train
+           data x view parallelism with rank processes sharing the card
+           (spawned from this script, a file store under build/parallel;
+           gloo, as `multihost.backend_for` picks it for ranks sharing a
+           card; every line names its backend): one float32 step of
+           `scannet_config()` from the seeded weights, cuDNN
+           deterministic, through `fit` with a 1 x 2 and a 2 x 1 mesh, on
+           40-view scenes with 2 targets (3 steps each; the first step's
+           averaged gradients compared, the last one's collectives timed
+           between device synchronisations, so the second is the step
+           time).  data 2: losses <= 1e-5 and every gradient <= 1e-4
+           relative against the mean of the two scenes' unsharded steps
+           with the head's positive count set to their mean.  view 2:
+           losses <= 1e-5 against the unsharded step, and the largest
+           leaf's and all the gradients' distance from it at most twice
+           the witness's, the unsharded step with the lift summed as two
+           halves (a change of summation order alone; ~5e-3 at full
+           width).  Per rank: K1-K5 and the index once a step, the step
+           times, the peak memory, every collective's calls, MB and ms,
+           and every rank's parameters equal after the steps
+  parallel_train_bf16
+           data 2 x view 2 in bf16 on 4 ranks, 2 steps: losses finite,
+           90% of the trainable parameters moved, all 4 ranks'
+           parameters bit-equal, K3-K5 as their bf16 variants; step times
+           and peak memory per rank
+  parallel_nccl
+           world size 1 on NCCL (one rank, its own card): one step through
+           `make_sharded_train_step` bit-equal to `train_step`'s (every
+           parameter, statistic and loss term)
+  parallel_predict
+           the test launcher's `evaluate` with `--data-parallel 2` on 2
+           ranks from `launch_test`'s fitted checkpoint on its 3 scenes
+           (80 views; the last group padded): the APs equal, psnr and ssim
+           within 1e-4, the boxes, scores and labels given to the mAP
+           equal (1e-5) to `launch_test_vs_plain`'s one scene at a time;
+           K1 and K3 twice on each rank
+  launch_train_parallel
+           `python -m torch.distributed.run --standalone --nproc_per_node
+           2 chip_smoke.py --launch-rank DIR` with the train launcher's
+           `--synthetic 2 --steps 2 --data-parallel 2 --dtype bfloat16`:
+           each torchrun process runs `mvsdet_torch.tools.train.main`;
+           exit 0, the log's layout record (gloo, world 2), two finite
+           step records from rank 0, `latest` written, both ranks'
+           launches (2 each) and equal parameters
   cull     the compositor kernels' own cull boxes (`cull_boxes`) on the
            tables the predict and the training step gave K1, taken through
            the recorders: the slots `cull_boxes_reference` keeps, boxes
@@ -185,6 +230,7 @@ from unittest import mock
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores
@@ -669,6 +715,603 @@ def detached(args):
                  for a in args)
 
 
+# -- the parallel phases: rank processes on the one card -----------------------
+
+PARALLEL_SCENE_SEEDS = (0, 1)        # data row d trains on scene d
+
+
+class CollectiveLog:
+    """Wraps `torch.distributed.all_reduce` and `all_gather` in a rank
+    process: while `on`, each call is timed on the host clock between two
+    device synchronisations and kept with its caller, its shape and the
+    bytes it moves (the tensor's, or the gathered output's)."""
+
+    def __init__(self):
+        self.on = False
+        self.calls = []
+
+    def install(self):
+        for name in ("all_reduce", "all_gather"):
+            setattr(dist, name, self._timed(name, getattr(dist, name)))
+
+    def _timed(self, name, fn):
+        def call(*args, **kwargs):
+            if not self.on:
+                return fn(*args, **kwargs)
+            caller = sys._getframe(1).f_code.co_qualname
+            t = args[0] if name == "all_reduce" else args[1]
+            n = len(args[0]) if name == "all_gather" else 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.calls.append(dict(
+                op=name, caller=caller, shape=list(t.shape),
+                mb=n * t.numel() * t.element_size() / 1e6,
+                ms=(time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    def summary(self):
+        """The calls by (op, caller): count, MB and ms in all."""
+        out = {}
+        for c in self.calls:
+            s = out.setdefault(f"{c['op']} {c['caller']}",
+                               dict(calls=0, mb=0.0, ms=0.0))
+            s["calls"] += 1
+            s["mb"] += c["mb"]
+            s["ms"] += c["ms"]
+        return out
+
+
+def _launch_counts():
+    from mvsdet_torch.ops import lift_kernel, splat_kernel
+    fns = {"composite_tiles": splat_kernel.composite_tiles,
+           "composite_tiles_bwd": splat_kernel.composite_tiles_bwd,
+           "weighted_gather_sum": lift_kernel.weighted_gather_sum,
+           "weighted_gather_sum_dfeat": lift_kernel.weighted_gather_sum_dfeat,
+           "weighted_gather_sum_dweight":
+               lift_kernel.weighted_gather_sum_dweight,
+           "lift_rows": lift_kernel.lift_rows}
+    return fns
+
+
+def _reset_launches(fns):
+    for fn in fns.values():
+        fn.launches = 0
+        if hasattr(fn, "bf16_launches"):
+            fn.bf16_launches = 0
+
+
+def _read_launches(fns):
+    return ({k: fn.launches for k, fn in fns.items()},
+            {k: fn.bf16_launches for k, fn in fns.items()
+             if hasattr(fn, "bf16_launches")})
+
+
+def _deterministic(on: bool):
+    torch.backends.cudnn.deterministic = on
+    torch.use_deterministic_algorithms(on, warn_only=True)
+
+
+def _rank_entry(rank, world, store, job, out, args):
+    """One rank on the card: joins a process group of ``world`` ranks
+    through a file store, on the backend the layout gives (gloo where the
+    ranks share the card), and runs ``job``; its result goes to
+    ``<out>/<job>-rank<r>.json``."""
+    from mvsdet_torch.parallel import multihost
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    backend = multihost.backend_for("cuda", local_ranks=world)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        result = RANK_JOBS[job](rank, out, *args)
+    finally:
+        dist.destroy_process_group()
+    result.update(rank=rank, backend=backend)
+    with open(Path(out) / f"{job}-rank{rank}.json", "w") as f:
+        json.dump(result, f)
+
+
+def run_ranks(job, world, *args, timeout=600):
+    """``job`` on ``world`` spawned ranks (all on the one card); every
+    rank's result, in rank order."""
+    import torch.multiprocessing as mp
+
+    out = Path(__file__).resolve().parent / "build" / "parallel"
+    out.mkdir(parents=True, exist_ok=True)
+    store = out / f"{job}-store"
+    store.unlink(missing_ok=True)
+    for old in out.glob(f"{job}-rank*.json"):
+        old.unlink()
+    ctx = mp.start_processes(_rank_entry,
+                             args=(world, str(store), job, str(out), args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    while not ctx.join(timeout=max(deadline - time.monotonic(), 1.0)):
+        if time.monotonic() >= deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"{job}: ranks did not finish in {timeout} s")
+    results = []
+    for r in range(world):
+        with open(out / f"{job}-rank{r}.json") as f:
+            results.append(json.load(f))
+    return results
+
+
+def _params_digest(model):
+    import hashlib
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode() + t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def job_train(rank, out, data, view, dtype_name, steps, grads_path):
+    """``steps`` sharded steps through `fit` of `scannet_config()` at full
+    width from the seeded weights on a ``data x view`` mesh, data row d on
+    synthetic scene PARALLEL_SCENE_SEEDS[d] (40 views, 2 targets).  The
+    first step's averaged gradients go to ``grads_path`` (rank 0, on the
+    host) when it is given; the last step's collectives are timed, each
+    between two device synchronisations, so the step before it is the
+    one whose time counts."""
+    from unittest import mock
+
+    from mvsdet_torch.config import scannet_config
+    from mvsdet_torch.data.synthetic import make_synthetic_scene
+    from mvsdet_torch.parallel import sharding
+    from mvsdet_torch.parallel.mesh import make_mesh
+    from mvsdet_torch.training.loop import create_train_state, fit
+
+    dtype = getattr(torch, dtype_name)
+    cfg = scannet_config()
+    _deterministic(dtype == torch.float32)
+    mesh = make_mesh(data, view)
+    scene = make_synthetic_scene(
+        cfg, seed=PARALLEL_SCENE_SEEDS[mesh.data_index],
+        n_views=cfg.data.n_src_train,
+        n_targets=cfg.data.nerf_target_views_train)
+    state = create_train_state(
+        cfg, device="cuda", dtype=dtype,
+        generator=torch.Generator().manual_seed(cfg.seed))
+    before = {k: p.detach().clone()
+              for k, p in state.model.named_parameters()}
+    log = CollectiveLog()
+    log.install()
+    grads = {}
+    apply_gradients = sharding.apply_gradients
+
+    def update(state):
+        if grads_path and rank == 0 and not grads:
+            grads.update({k: p.grad.detach().cpu()
+                          for k, p in state.model.named_parameters()
+                          if p.grad is not None})
+        log.on = False
+        apply_gradients(state)
+
+    records = []
+    t_prev = [0.0]
+
+    def log_step(i, metrics):
+        now = time.perf_counter()
+        records.append(dict(step=i, ms=(now - t_prev[0]) * 1e3, **metrics))
+        t_prev[0] = now
+        log.on = i + 1 == steps - 1       # time the last step's collectives
+
+    fns = _launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(fns)
+    log.on = steps == 1
+    t_prev[0] = time.perf_counter()
+    with mock.patch.object(sharding, "apply_gradients", update):
+        fit(state, (scene for _ in range(steps)), steps, log_every=1,
+            log_fn=log_step, mesh=mesh)
+    launches, bf16_launches = _read_launches(fns)
+    if grads and rank == 0:
+        torch.save(grads, grads_path)
+    trainable = [k for k, p in state.model.named_parameters()
+                 if p.requires_grad]
+    moved = sum(not torch.equal(p.detach(), before[k])
+                for k, p in state.model.named_parameters()
+                if k in trainable)
+    return dict(records=records, launches=launches,
+                bf16_launches=bf16_launches,
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                collectives=log.summary(), moved=moved,
+                trainable=len(trainable),
+                digest=_params_digest(state.model),
+                local_views=int(sharding.shard_batch(
+                    scene, mesh)["images"].shape[0]))
+
+
+def job_nccl(rank, out):
+    """World size 1: one step of the same state through
+    `make_sharded_train_step` (via `fit`) and through `train_step`, cuDNN
+    deterministic: whether the two states end bit-equal."""
+    from mvsdet_torch.config import scannet_config
+    from mvsdet_torch.data.prefetch import stage_batch
+    from mvsdet_torch.data.synthetic import make_synthetic_scene
+    from mvsdet_torch.parallel.mesh import make_mesh
+    from mvsdet_torch.training.loop import create_train_state, fit, train_step
+
+    cfg = scannet_config()
+    _deterministic(True)
+    scene = make_synthetic_scene(cfg, seed=0, n_views=cfg.data.n_src_train,
+                                 n_targets=cfg.data.nerf_target_views_train)
+    mesh = make_mesh(1, 1)
+    fns = _launch_counts()
+    states, metrics = [], []
+    for sharded in (True, False):
+        state = create_train_state(
+            cfg, device="cuda",
+            generator=torch.Generator().manual_seed(cfg.seed))
+        _reset_launches(fns)
+        if sharded:
+            logged = []
+            fit(state, [scene], 1, log_fn=lambda i, m: logged.append(m),
+                mesh=mesh)
+            metrics.append(logged[0])
+            launches = _read_launches(fns)[0]
+        else:
+            m = train_step(state, stage_batch(scene, "cuda"))
+            metrics.append({k: float(v) for k, v in m.items()})
+        states.append(state.model.state_dict())
+        del state
+    equal = [k for k in states[0] if torch.equal(states[0][k], states[1][k])]
+    return dict(metrics=metrics, launches=launches,
+                tensors=len(states[0]), bit_equal=len(equal),
+                differ=[k for k in states[0] if k not in equal][:5],
+                metrics_equal=metrics[0] == metrics[1])
+
+
+def job_predict(rank, out, checkpoint, n_scenes):
+    """The test launcher's `evaluate` with `--data-parallel` of every rank
+    from ``checkpoint`` on ``n_scenes`` synthetic 80-view scenes: its
+    metric dict and the boxes, scores and labels each scene gave the
+    mAP."""
+    from unittest import mock
+
+    from mvsdet_torch.config import scannet_config
+    from mvsdet_torch.evaluation import harness
+    from mvsdet_torch.evaluation.indoor_eval import indoor_map
+    from mvsdet_torch.tools import test as test_launcher
+
+    # as `launch_test_vs_plain` ran the same evaluation one scene at a time
+    torch.backends.cudnn.deterministic = True
+    world = dist.get_world_size()
+    scored = []
+
+    def scoring_map(preds, gts, **kwargs):
+        scored.extend(preds)
+        return indoor_map(preds, gts, **kwargs)
+
+    fns = _launch_counts()
+    _reset_launches(fns)
+    with mock.patch.object(harness, "indoor_map", scoring_map):
+        results = test_launcher.evaluate(scannet_config(),
+                                         test_launcher.parse_args([
+                                             "--synthetic", str(n_scenes),
+                                             "--checkpoint", checkpoint,
+                                             "--data-parallel", str(world)]))
+    launches, bf16_launches = _read_launches(fns)
+    return dict(results=results, launches=launches,
+                bf16_launches=bf16_launches,
+                preds=[{k: v.tolist() for k, v in p.items()}
+                       for p in scored],
+                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+RANK_JOBS = {"train": job_train, "nccl": job_nccl, "predict": job_predict}
+
+
+def _rel_all(a, b):
+    """|a - b| / |b| over every leaf together."""
+    return math.sqrt(sum(float((a[k] - b[k]).square().sum()) for k in b)
+                     / sum(float(b[k].square().sum()) for k in b))
+
+
+def _rel_by_leaf(a, b):
+    return {k: (torch.linalg.vector_norm(a[k] - b[k])
+                / torch.linalg.vector_norm(b[k]).clamp_min(1e-30)).item()
+            for k in b}
+
+
+def parallel_train_phase(cfg):
+    """`parallel_train`: one sharded float32 step at view 2 and at data 2
+    (2 ranks on the card) against the unsharded step from the same
+    weights here, then `parallel_train_bf16` (data 2 x view 2, 4 ranks)
+    and `parallel_nccl` (world size 1).
+
+    The data-2 step is held to the bounds of `train_vs_plain` (losses
+    1e-5, every gradient 1e-4 relative): each rank computes a whole scene
+    as the unsharded step does.  The view-2 step sums its volume as two
+    ranks' sums and runs the backbone on 20 views at a time, which round
+    otherwise than the unsharded step, and at full width the step's
+    gradients move by ~5e-3 under such rounding-level changes: the
+    witness is the unsharded step whose lift sums the two halves apart
+    (`halves`), a change of summation order alone.  So at view 2 the
+    losses keep the 1e-5 bound, and the gradients' largest leaf and all
+    of them together may be twice the witness's distance from the plain
+    unsharded step."""
+    from mvsdet_torch.data.prefetch import stage_batch
+    from mvsdet_torch.data.synthetic import make_synthetic_scene
+    from mvsdet_torch.models import mvsdet as mvsdet_module
+    from mvsdet_torch.models.head import head_loss
+    from mvsdet_torch.training.loop import create_train_state
+
+    _deterministic(True)
+    scenes = [make_synthetic_scene(cfg, seed=s, n_views=cfg.data.n_src_train,
+                                   n_targets=cfg.data.nerf_target_views_train)
+              for s in PARALLEL_SCENE_SEEDS]
+    model = create_train_state(
+        cfg, device="cuda",
+        generator=torch.Generator().manual_seed(cfg.seed)).model
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+
+    lift = mvsdet_module.lift_features_to_voxels
+
+    def lift_halves(features, projections, est_depth, est_prob, points, vz):
+        """The lift of each half of the views, summed (as two view ranks'
+        psum sums them)."""
+        h = features.shape[0] // 2
+        a, b = (lift(features[s], projections[s], est_depth[s], est_prob[s],
+                     points, vz) for s in (slice(0, h), slice(h, None)))
+        return a[0] + b[0], a[1] + b[1]
+
+    def unsharded(scene, n_pos=None, halves=False):
+        """The loss terms and gradients of one scene from the initial
+        weights, the head's positive count set to ``n_pos`` if given, the
+        lift split into two halves with ``halves``."""
+        model.load_state_dict(initial)
+        model.zero_grad(set_to_none=True)
+        batch = stage_batch(scene, "cuda")
+        if halves:
+            with mock.patch.object(mvsdet_module, "lift_features_to_voxels",
+                                   lift_halves):
+                total, aux = model.loss(batch)
+        elif n_pos is None:
+            total, aux = model.loss(batch)
+        else:
+            result = model(batch, train=True)
+            losses, aux = head_loss(
+                result["head_outs"], result["points"], result["valids"],
+                batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"],
+                cfg.model.head, n_pos_override=n_pos)
+            losses["loss_nvs"] = torch.mean(
+                (result["rendered"] - batch["gt_images"]) ** 2)
+            total = sum(losses.values())
+            aux.update(losses)
+        total.backward()
+        return ({"loss": total.item(), **{k: v.item() for k, v in aux.items()}},
+                {k: p.grad.cpu() for k, p in model.named_parameters()
+                 if p.grad is not None})
+
+    view_ref = unsharded(scenes[0])
+    halves_ref = unsharded(scenes[0], halves=True)
+    witness = _rel_by_leaf(halves_ref[1], view_ref[1])
+    n_pos = sum(unsharded(s)[0]["n_pos"] for s in scenes) / len(scenes)
+    per_scene = [unsharded(s, n_pos) for s in scenes]
+    data_ref = ({k: sum(m[k] for m, _ in per_scene) / len(scenes)
+                 for k in per_scene[0][0]},
+                {k: sum(g[k] for _, g in per_scene) / len(scenes)
+                 for k in per_scene[0][1]})
+    data_ref[0]["n_pos"] = n_pos
+    del model, initial, per_scene
+    torch.cuda.empty_cache()
+    _deterministic(False)
+
+    grads_path = str(Path(__file__).resolve().parent / "build" / "parallel"
+                     / "grads.pt")
+    witness_all = _rel_all(halves_ref[1], view_ref[1])
+    for name, data, view, ref in (("view2", 1, 2, view_ref),
+                                  ("data2", 2, 1, data_ref)):
+        ranks = run_ranks("train", 2, data, view, "float32", 3, grads_path)
+        got = torch.load(grads_path, weights_only=True)
+        want_metrics, want_grads = ref
+        metrics = {k: v for k, v in ranks[0]["records"][0].items()
+                   if k not in ("step", "ms")}
+        loss_rel = {k: abs(metrics[k] - v) / max(abs(v), 1e-30)
+                    for k, v in want_metrics.items()}
+        grad_rel = _rel_by_leaf(got, want_grads)
+        worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:5]
+        all_rel = _rel_all(got, want_grads)
+        if name == "view2":
+            leaf_tol = 2 * max(witness.values())
+            all_tol = 2 * witness_all
+            extra = dict(witness_max_grad_rel_err=max(witness.values()),
+                         witness_all_grads_rel_err=witness_all,
+                         halves_max_grad_rel_err=max(_rel_by_leaf(
+                             got, halves_ref[1]).values()))
+        else:
+            leaf_tol, all_tol, extra = 1e-4, 1e-4, {}
+        emit(phase="parallel_train", case=name, dtype="float32",
+             data=data, view=view, backend=ranks[0]["backend"],
+             local_views=ranks[0]["local_views"],
+             reference="the unsharded step" if name == "view2"
+             else "mean of the unsharded scenes, n_pos their mean",
+             loss_rel_err=loss_rel, max_grad_rel_err=worst[0][1],
+             all_grads_rel_err=all_rel, grad_tolerance=[leaf_tol, all_tol],
+             worst_grads=worst, n_grads=len(grad_rel), **extra,
+             ranks=[dict(rank=r["rank"], step_ms=[s["ms"] for s in
+                                                  r["records"]],
+                         peak_memory_gb=r["peak_memory_gb"],
+                         launches=r["launches"],
+                         collectives=r["collectives"]) for r in ranks])
+        check(set(got) == set(want_grads), f"parallel_train {name}: "
+              f"gradients of other parameters than the unsharded step's")
+        check(max(loss_rel.values()) <= 1e-5,
+              f"parallel_train {name}: losses differ: {loss_rel}")
+        check(worst[0][1] <= leaf_tol and all_rel <= all_tol,
+              f"parallel_train {name}: gradients differ: {worst}, all "
+              f"{all_rel}, bounds {leaf_tol}, {all_tol}")
+        check(len({r["digest"] for r in ranks}) == 1,
+              f"parallel_train {name}: the ranks' parameters differ")
+        for r in ranks:
+            check(all(n == 3 for n in r["launches"].values()),
+                  f"parallel_train {name} rank {r['rank']}: launches "
+                  f"{r['launches']}, expected 3 each (3 steps)")
+            check(r["backend"] == "gloo", f"parallel_train {name}: backend "
+                                          f"{r['backend']} for 2 ranks on "
+                                          f"one card")
+        del got, want_grads
+    del view_ref, halves_ref, data_ref
+
+    # data 2 x view 2 in bf16 on 4 ranks
+    ranks = run_ranks("train", 4, 2, 2, "bfloat16", 2, None)
+    emit(phase="parallel_train_bf16", dtype="bfloat16", data=2, view=2,
+         backend=ranks[0]["backend"], local_views=ranks[0]["local_views"],
+         ranks=[dict(rank=r["rank"], step_ms=[s["ms"] for s in r["records"]],
+                     losses=[s["loss"] for s in r["records"]],
+                     peak_memory_gb=r["peak_memory_gb"],
+                     launches=r["launches"], bf16_launches=r["bf16_launches"],
+                     moved=r["moved"], collectives=r["collectives"])
+                for r in ranks])
+    check(len({r["digest"] for r in ranks}) == 1,
+          "parallel_train_bf16: the 4 ranks' parameters are not bit-equal")
+    for r in ranks:
+        check(all(np.isfinite(v) for s in r["records"] for k, v in s.items()
+                  if k != "step"), f"parallel_train_bf16 rank {r['rank']}: "
+                                   f"{r['records']}")
+        check(r["moved"] > 0.9 * r["trainable"],
+              f"parallel_train_bf16 rank {r['rank']}: {r['moved']} of "
+              f"{r['trainable']} trainable parameters moved")
+        check(all(n == 2 for n in r["launches"].values()) and all(
+            r["bf16_launches"][k] == 2 for k in (
+                "weighted_gather_sum", "weighted_gather_sum_dfeat",
+                "weighted_gather_sum_dweight")),
+              f"parallel_train_bf16 rank {r['rank']}: launches "
+              f"{r['launches']}, bf16 {r['bf16_launches']}")
+
+    (r,) = run_ranks("nccl", 1)
+    emit(phase="parallel_nccl", backend=r["backend"], world=1,
+         tensors=r["tensors"], bit_equal=r["bit_equal"], differ=r["differ"],
+         metrics=r["metrics"], launches=r["launches"])
+    check(r["backend"] == "nccl", f"parallel_nccl: backend {r['backend']}")
+    check(r["bit_equal"] == r["tensors"] and r["metrics_equal"],
+          f"parallel_nccl: the sharded step at world size 1 is not the "
+          f"unsharded step bit for bit: {r['differ']}, {r['metrics']}")
+    check(all(n == 1 for n in r["launches"].values()),
+          f"parallel_nccl: launches {r['launches']}")
+
+
+def parallel_predict_phase(checkpoint, n_scenes, single, single_scored):
+    """`parallel_predict`: the test launcher's evaluation with
+    `--data-parallel 2` on 2 ranks against the same evaluation one scene
+    at a time (``single``, with the boxes, scores and labels each scene
+    gave the mAP, ``single_scored``)."""
+    ranks = run_ranks("predict", 2, str(checkpoint), n_scenes)
+    got = ranks[0]["results"]
+    aps = sorted(k for k in single if k.startswith(("AP_", "mAP", "mAR")))
+    ap_equal = set(got) == set(single) and all(got[k] == single[k]
+                                               for k in aps)
+    nvs_rel = {k: abs(got[k] - single[k]) / abs(single[k])
+               for k in ("psnr", "ssim")}
+    pairs = list(zip(ranks[0]["preds"], single_scored))
+    preds_equal = len(pairs) == n_scenes and all(
+        np.array_equal(a["labels"], b["labels"])
+        and np.allclose(a["boxes"], b["boxes"], rtol=1e-5, atol=1e-5)
+        and np.allclose(a["scores"], b["scores"], rtol=1e-5, atol=1e-5)
+        for a, b in pairs)
+    emit(phase="parallel_predict", backend=ranks[0]["backend"], ranks=2,
+         group_size=2, scenes=n_scenes, aps_equal=ap_equal,
+         nvs_rel_err=nvs_rel, preds_equal=preds_equal,
+         map_025=got["mAP_0.25"],
+         predict_s=[(r["results"]["predict_s_first"],
+                     r["results"].get("predict_s_per_scene")) for r in ranks],
+         launches=[r["launches"] for r in ranks],
+         peak_memory_gb=[r["peak_memory_gb"] for r in ranks])
+    untimed = lambda res: {k: v for k, v in res.items()
+                           if not k.startswith("predict_s")}
+    check(all(untimed(r["results"]) == untimed(got) for r in ranks[1:]),
+          "parallel_predict: the ranks' metrics differ")
+    check(preds_equal, "parallel_predict: the boxes, scores or labels given "
+                       "to the mAP differ from one scene at a time's")
+    check(got["mAP_0.25"] > 0, "parallel_predict: nothing detected, so the "
+                               "APs' equality would hold trivially")
+    check(ap_equal, f"parallel_predict: APs differ: {got} against {single}")
+    check(max(nvs_rel.values()) <= 1e-4,
+          f"parallel_predict: psnr/ssim differ by {nvs_rel}")
+    for r in ranks:
+        # each rank predicts one scene of each group of 2, the last padded
+        want = {name: 2 * (name in ("composite_tiles", "weighted_gather_sum"))
+                for name in r["launches"]}
+        check(r["launches"] == want,
+              f"parallel_predict rank {r['rank']}: launches {r['launches']}")
+
+
+def launch_rank(out: str, argv) -> None:
+    """One process of `launch_train_parallel` under torchrun: the train
+    launcher's `main`, then this rank's launches and parameters' digest
+    in ``<out>/rank<RANK>.json``."""
+    import os
+
+    from mvsdet_torch.tools import train as train_launcher
+
+    fns = _launch_counts()
+    _reset_launches(fns)
+    state = train_launcher.main(argv)
+    launches, bf16_launches = _read_launches(fns)
+    with open(Path(out) / f"rank{os.environ['RANK']}.json", "w") as f:
+        json.dump(dict(launches=launches, bf16_launches=bf16_launches,
+                       digest=_params_digest(state.model), step=state.step),
+                  f)
+
+
+def launch_train_parallel_phase():
+    """`launch_train_parallel`: the train launcher under `torch.distributed
+    .run --standalone --nproc_per_node 2` with `--data-parallel 2`, bf16,
+    2 steps: exit 0, finite step records written by rank 0, both ranks'
+    launches and equal parameters."""
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "launch_parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", str(root / "chip_smoke.py"),
+         "--launch-rank", str(work), "--synthetic", "2", "--steps", "2",
+         "--data-parallel", "2", "--dtype", "bfloat16", "--log-every", "1",
+         "--work-dir", str(work / "run")],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    check(res.returncode == 0, f"launch_train_parallel: exit "
+                               f"{res.returncode}\n{res.stderr[-3000:]}")
+    with open(work / "run" / "train_log.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    steps = [r for r in log if "loss" in r]
+    ranks = []
+    for r in range(2):
+        with open(work / f"rank{r}.json") as f:
+            ranks.append(json.load(f))
+    emit(phase="launch_train_parallel", dtype="bfloat16", layout=log[0],
+         steps=len(steps), step_times_s=[r["time"] for r in steps],
+         losses=[r["loss"] for r in steps], command_s=seconds,
+         launches=[r["launches"] for r in ranks],
+         bf16_launches=[r["bf16_launches"] for r in ranks])
+    check(log[0].get("backend") == "gloo" and log[0].get("world") == 2,
+          f"launch_train_parallel: layout {log[0]}")
+    check(len(steps) == 2 and all(np.isfinite(v) for r in steps
+                                  for v in r.values()),
+          f"launch_train_parallel: step records {steps}")
+    check((work / "run" / "latest").is_file(),
+          "launch_train_parallel: latest was not written")
+    check(len({r["digest"] for r in ranks}) == 1,
+          "launch_train_parallel: the ranks' parameters differ")
+    for r in ranks:
+        check(all(n == 2 for n in r["launches"].values()) and all(
+            r["bf16_launches"][k] == 2 for k in (
+                "weighted_gather_sum", "weighted_gather_sum_dfeat",
+                "weighted_gather_sum_dweight")),
+              f"launch_train_parallel: launches {r['launches']}, bf16 "
+              f"{r['bf16_launches']}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -676,7 +1319,14 @@ def main(argv=None) -> int:
         help="also torch.save the inputs the training step and the predict "
              "gave K1-K5, the bf16 step K3, K4 and K5 and the bf16 predict "
              "K3 (for mvsdet_torch/tools/time_kernels.py)")
-    opts = parser.parse_args(argv)
+    parser.add_argument(
+        "--launch-rank", metavar="DIR",
+        help="run as one torchrun process of launch_train_parallel: the "
+             "train launcher with the arguments that follow, then this "
+             "rank's launch counts into DIR")
+    opts, launcher_args = parser.parse_known_args(argv)
+    if launcher_args and not opts.launch_rank:
+        parser.error(f"unrecognized arguments: {' '.join(launcher_args)}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -686,6 +1336,9 @@ def main(argv=None) -> int:
               "mvsdet_torch package is missing)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if opts.launch_rank:
+        launch_rank(opts.launch_rank, launcher_args)
+        return 0
 
     from mvsdet_torch.config import arkit_config, scannet_config
     from mvsdet_torch.data.synthetic import make_synthetic_scene
@@ -1361,6 +2014,7 @@ def main(argv=None) -> int:
         check(max(nvs_rel.values()) <= 1e-4,
               f"launch_test: psnr/ssim differ from the plain versions' by "
               f"{nvs_rel}")
+        detecting = (work / "detecting", kernel, scored["kernel"])
 
         # -- test --arkit in bf16: the rotated mAP ----------------------------
         arkit_dims = []
@@ -1388,6 +2042,7 @@ def main(argv=None) -> int:
                         for name in bf16_launches}, "launch_test --arkit")
         del models
         torch.cuda.empty_cache()
+        return detecting
 
     scenes = [make_synthetic_scene(cfg, seed=s, n_views=cfg.data.n_src_test,
                                    n_targets=cfg.data.nerf_target_views_test)
@@ -1427,7 +2082,12 @@ def main(argv=None) -> int:
     del scenes, arkit_scene, grads32
 
     batch_norm_phases(scene)
-    launch_phases()
+    detecting = launch_phases()
+
+    # -- data x view parallel: rank processes sharing the card -----------
+    parallel_train_phase(cfg)
+    parallel_predict_phase(detecting[0], N_SCENES, *detecting[1:])
+    launch_train_parallel_phase()
 
     # -- kernels line ----------------------------------------------------
     args = {name: detached(r.args) for name, (_, r) in recorders.items()}

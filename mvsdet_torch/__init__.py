@@ -17,8 +17,10 @@ plain PyTorch version (same module) for CPU tensors.  Entry points:
 `models.mvsdet.build_model(cfg)` and `evaluation.harness.make_predict_fn`
 to serve, `training.loop.create_train_state` and `fit` to train, and the
 launchers `python -m mvsdet_torch.tools.train` and `...tools.test` over
-real-format data (`data/`, `evaluation/`), all on the card unless the
-caller asks for the CPU, and all computing in float32
+real-format data (`data/`, `evaluation/`), which under torchrun shard
+scenes and views over ranks (`parallel/`, the JAX package's `shard_map`
+step), all on the card unless the caller asks for the CPU, and all
+computing in float32
 or, given `dtype=torch.bfloat16`, in bf16 as the JAX package's `dtype`
 does (parameters and optimizer state float32).  The layout mirrors the JAX
 package so each module's counterpart is found by path.  This package

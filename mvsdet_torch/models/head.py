@@ -9,13 +9,14 @@ with a mask.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from mvsdet_torch.config import HeadConfig
 from mvsdet_torch.models.layers import Conv3d, at_least, sigmoid, softplus
+from mvsdet_torch.parallel.collectives import pmean
 from mvsdet_torch.ops.nms import (aligned_3d_nms, corner_to_center,
                                   rotated_3d_nms, rotated_iou_3d_soft_pairs)
 
@@ -172,10 +173,16 @@ def axis_aligned_iou(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
 def head_loss(head_outs, points_per_level: List[torch.Tensor],
               valid_per_level: List[torch.Tensor], gt_boxes: torch.Tensor,
               gt_labels: torch.Tensor, gt_mask: torch.Tensor,
-              cfg: HeadConfig):
+              cfg: HeadConfig, n_pos_override: Optional[torch.Tensor] = None,
+              data_group=None):
     """Single-scene head loss (`_loss_by_feat_single`, :206-257): focal
     classification over valid points, centerness BCE and centerness-
     weighted (1 - IoU) over positives.
+
+    The focal and centerness terms divide by the positive count: this
+    scene's, or with ``data_group`` its mean over the group's scenes (the
+    reference's DDP `reduce_mean`, mvsdet_tpu/models/head.py:245-248), or
+    ``n_pos_override`` where given; at least 1.
 
     Returns:
       dict(center_loss, bbox_loss, cls_loss), dict(n_pos=local count).
@@ -185,7 +192,8 @@ def head_loss(head_outs, points_per_level: List[torch.Tensor],
     cness_t, bbox_t, labels_t = assign_targets(points, scales, gt_boxes,
                                                gt_labels, gt_mask, cfg)
     per_point = 1.0 - axis_aligned_iou(decode_bbox(points, reg), bbox_t)
-    return _losses(center, cls, valid, cness_t, labels_t, per_point, cfg)
+    return _losses(center, cls, valid, cness_t, labels_t, per_point, cfg,
+                   n_pos_override, data_group)
 
 
 def _concat_levels(head_outs, points_per_level, valid_per_level):
@@ -202,13 +210,22 @@ def _concat_levels(head_outs, points_per_level, valid_per_level):
 
 
 def _losses(center, cls, valid, cness_t, labels_t, per_point,
-            cfg: HeadConfig):
+            cfg: HeadConfig, n_pos_override=None, data_group=None):
     """The three weighted terms from the targets and the per-point box
     loss: focal over valid points, centerness BCE over positives, the box
-    loss weighted by the centerness target."""
+    loss weighted by the centerness target.  The positive count is
+    ``n_pos_override``, else this scene's, averaged over ``data_group``
+    where one is given."""
     pos = (labels_t >= 0) & valid
     n_pos_local = pos.to(torch.float32).sum()
-    n_pos = torch.clamp_min(n_pos_local, 1.0)
+    if n_pos_override is not None:
+        n_pos = torch.as_tensor(n_pos_override, dtype=torch.float32,
+                                device=n_pos_local.device)
+    elif data_group is not None:
+        n_pos = pmean(n_pos_local, data_group)
+    else:
+        n_pos = n_pos_local
+    n_pos = torch.clamp_min(n_pos, 1.0)
 
     cls_labels = torch.where(valid, labels_t, -1)
     focal = sigmoid_focal_loss(cls, cls_labels, cfg.focal_gamma,
@@ -375,7 +392,8 @@ def assign_targets_rotated(points: torch.Tensor, scales: torch.Tensor,
 def head_loss_rotated(head_outs, points_per_level: List[torch.Tensor],
                       valid_per_level: List[torch.Tensor],
                       gt_boxes7: torch.Tensor, gt_labels: torch.Tensor,
-                      gt_mask: torch.Tensor, cfg: HeadConfig):
+                      gt_mask: torch.Tensor, cfg: HeadConfig,
+                      data_group=None):
     """The ARKit head's loss: `head_loss`'s focal and centerness terms and
     a rotated box loss, by `cfg.rotated_bbox_loss`:
 
@@ -385,7 +403,9 @@ def head_loss_rotated(head_outs, points_per_level: List[torch.Tensor],
                      target's frame over its size, the log size ratio,
                      and sin / 1 - cos of the yaw difference.
 
-    Both weighted by the centerness target.  Returns as `head_loss`.
+    Both weighted by the centerness target.  With ``data_group`` the
+    positive count is averaged over the group's scenes, as `head_loss`'s
+    (mvsdet_tpu/models/head.py:395-397).  Returns as `head_loss`.
     """
     center, reg, cls, valid, points, scales = _concat_levels(
         head_outs, points_per_level, valid_per_level)
@@ -407,7 +427,8 @@ def head_loss_rotated(head_outs, points_per_level: List[torch.Tensor],
     else:
         raise ValueError(
             f"unknown rotated_bbox_loss {cfg.rotated_bbox_loss!r}")
-    return _losses(center, cls, valid, cness_t, labels_t, per_point, cfg)
+    return _losses(center, cls, valid, cness_t, labels_t, per_point, cfg,
+                   data_group=data_group)
 
 
 def head_predict_rotated(head_outs, points_per_level: List[torch.Tensor],

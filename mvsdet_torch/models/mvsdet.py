@@ -15,8 +15,10 @@
 losses, the novel-view MSE and the optional depth L1.  ScanNet's shared
 intrinsics and ARKit's per-view and per-target ones both run, as do the
 aligned head and the ARKit yaw head (`head.with_yaw`), and CostRegNet in
-GroupNorm or BatchNorm mode.  View sharding comes later.  The plane sweep
-is the bilinear gather (`sweep_method="gather"` of the JAX module).
+GroupNorm or BatchNorm mode.  Given a view group (`parallel/`), a scene's
+views are sharded over its ranks as the JAX module's `view_axis` shards
+them (mvsdet_tpu/models/mvsdet.py:283-358).  The plane sweep is the
+bilinear gather (`sweep_method="gather"` of the JAX module).
 Public tensors keep the JAX package's channels-last layout.
 
 ``dtype`` is the JAX module's compute dtype: the networks compute in it
@@ -35,6 +37,7 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -60,6 +63,14 @@ from mvsdet_torch.ops.plane_sweep import plane_sweep_variance_for_refs
 from mvsdet_torch.ops.sampling import bilinear_resize, linear_resize
 from mvsdet_torch.ops.splat_tiles import render_views_tiled
 from mvsdet_torch.ops.voxel_lift import finalize_volume, lift_features_to_voxels
+from mvsdet_torch.parallel.collectives import all_gather_views, psum
+
+
+DEPTH_SUPERVISION_SHARDED = (
+    "depth_supervision with the views sharded over more than one rank: "
+    "the JAX step compares each rank's shard of the depth maps with the "
+    "depth estimate of every view, which fails or means nothing; train "
+    "with --view-parallel 1 or without depth supervision")
 
 
 def _upsample_valid(valid_count: torch.Tensor, shape3) -> torch.Tensor:
@@ -117,8 +128,11 @@ class MVSDet(nn.Module):
         return self.fpn(feats)[0].permute(0, 2, 3, 1).contiguous()
 
     def depth_probabilities(self, features: torch.Tensor, proj44: torch.Tensor,
-                            neighbor_ids: torch.Tensor, train: bool = False):
-        """View-chunked plane sweep + cost regularisation.
+                            neighbor_ids: torch.Tensor, train: bool = False,
+                            ref_ids: Optional[torch.Tensor] = None):
+        """View-chunked plane sweep + cost regularisation, for every view
+        or, given ``ref_ids``, for those reference views only (a view
+        rank's own, mvsdet.py:111-160).
 
         With gradients on and ``sweep_remat``, each chunk runs under
         `torch.utils.checkpoint`: only its inputs are kept, and backward
@@ -128,13 +142,16 @@ class MVSDet(nn.Module):
         the whole batch's, and without checkpoint: a recompute in backward
         would move the running statistics a second time (ROADMAP T21).
 
-        Returns (prob, off), both (N, D, h, w) float32: prob softmaxed
-        over D, off sigmoided (mvsdet.py:470-475).  The float32 variance
+        Returns (prob, off), both (N, D, h, w) float32 (N the count of
+        ``ref_ids`` where given): prob softmaxed over D, off sigmoided
+        (mvsdet.py:470-475).  The float32 variance
         goes into CostRegNet in the compute dtype and its logits come back
         to float32 before the softmax and the sigmoid.
         """
         mc = self.cfg
-        n = features.shape[0]
+        if ref_ids is None:
+            ref_ids = torch.arange(features.shape[0], device=features.device)
+        n = ref_ids.shape[0]
         depths = depth_plane_values(*mc.near_far_range,
                                     mc.gs.num_depth_planes,
                                     device=features.device)
@@ -155,9 +172,9 @@ class MVSDet(nn.Module):
         remat = (self.sweep_remat and torch.is_grad_enabled()
                  and not batch_stats)
         probs, offs = [], []
-        for ref_ids in torch.arange(n, device=features.device).reshape(-1, chunk):
-            p, o = (checkpoint(step, ref_ids, use_reentrant=False) if remat
-                    else step(ref_ids))
+        for ids in ref_ids.reshape(-1, chunk):
+            p, o = (checkpoint(step, ids, use_reentrant=False) if remat
+                    else step(ids))
             probs.append(p)
             offs.append(o)
         return torch.cat(probs), torch.cat(offs)
@@ -241,10 +258,21 @@ class MVSDet(nn.Module):
     # -- full forward ------------------------------------------------------
 
     def extract_feat(self, batch: Dict[str, torch.Tensor],
-                     train: bool = False):
+                     train: bool = False, view=None):
         """Backbone -> sweep -> depth -> lift -> neck, and the Gaussian
         branch when the batch holds render targets.  ``train`` runs the
         neck's BatchNorm on batch statistics and updates its running ones.
+
+        With ``view``, a process group over which the scene's views are
+        sharded (mvsdet.py:283-358): ``images`` and ``denorm_images`` hold
+        this rank's consecutive slice of the views, the camera arrays all
+        of them.  The local features are all-gathered in float32; this
+        rank sweeps its own reference views against the whole set, whose
+        depth probabilities are gathered again; it lifts its own views
+        (K3), and the volume and the view counts are summed over the
+        group.  The neck, the head and the Gaussian branch (on the
+        gathered images) then run on every rank.  Backward sums each
+        collective's cotangents over the group (`parallel/collectives.py`).
 
         `batch` (one scene): images (N, H, W, 3) normalised;
         denorm_images (N, H, W, 3); w2c (N, 4, 4); intrinsic (4, 4) K at
@@ -253,8 +281,16 @@ class MVSDet(nn.Module):
         (T, 4, 4) one per target.
         """
         mc = self.cfg
-        feats = self.image_features(batch["images"].to(self.dtype))
-        feats = feats.to(torch.float32)     # the sweep's and the splats'
+        local = self.image_features(batch["images"].to(self.dtype))
+        local = local.to(torch.float32)     # the sweep's and the splats'
+        if view is not None:
+            feats = all_gather_views(local, view)
+            n_local = local.shape[0]
+            first = dist.get_rank(view) * n_local
+            ref_ids = torch.arange(first, first + n_local,
+                                   device=local.device)
+        else:
+            feats, ref_ids = local, None
         n = feats.shape[0]
 
         feat_intrinsic = scale_intrinsics(batch["intrinsic"],
@@ -265,16 +301,24 @@ class MVSDet(nn.Module):
             src_c2w[:, :3, 3], min(mc.plane_sweep_neighbors, n - 1))
 
         prob, off = self.depth_probabilities(feats, proj44, neighbor_ids,
-                                             train)
+                                             train, ref_ids)
+        if view is not None:
+            prob = all_gather_views(prob, view)
+            off = all_gather_views(off, view)
         est_depth, est_prob, depth_expect = self.sample_depth(prob, off)
 
         points = voxel_points(mc.n_voxels, mc.voxel_size,
                               batch["origin"]).reshape(3, -1).T  # (V, 3)
         # the lift gathers rows in the compute dtype (lossless: they are
         # the FPN's own values) and accumulates in float32
+        own = slice(None) if view is None \
+            else slice(first, first + n_local)
         vol_sum, valid_cnt = lift_features_to_voxels(
-            feats.to(self.dtype), proj44[:, :3, :4], est_depth, est_prob,
-            points, mc.voxel_size[2])
+            feats[own].to(self.dtype), proj44[own, :3, :4], est_depth[own],
+            est_prob[own], points, mc.voxel_size[2])
+        if view is not None:
+            vol_sum = psum(vol_sum, view)
+            valid_cnt = psum(valid_cnt, view)
         volume = finalize_volume(vol_sum, valid_cnt)          # (V, C)
         nx, ny, nz = mc.n_voxels
         volume = volume.to(self.dtype).reshape(nx, ny, nz, -1) \
@@ -283,9 +327,12 @@ class MVSDet(nn.Module):
 
         gaussians = None
         if "tgt_c2w" in batch:
+            denorm = batch["denorm_images"]
+            if view is not None:
+                denorm = all_gather_views(denorm, view)
             gaussians = self.gaussian_branch(
-                feats, batch["denorm_images"], prob, depth_expect, src_c2w,
-                feat_intrinsic, batch["tgt_c2w"])
+                feats, denorm, prob, depth_expect, src_c2w, feat_intrinsic,
+                batch["tgt_c2w"])
         return dict(levels=levels, valid_count=valid_cnt.reshape(nx, ny, nz),
                     est_depth=est_depth, est_prob=est_prob,
                     depth_expect=depth_expect, gaussians=gaussians, prob=prob,
@@ -317,9 +364,10 @@ class MVSDet(nn.Module):
         return pts, valids
 
     def forward(self, batch: Dict[str, torch.Tensor],
-                train: bool = False) -> Dict:
-        """Raw outputs (`MVSDet.__call__(train)`)."""
-        out = self.extract_feat(batch, train)
+                train: bool = False, view=None) -> Dict:
+        """Raw outputs (`MVSDet.__call__(train, view_axis)`); ``view`` as
+        `extract_feat` takes it."""
+        out = self.extract_feat(batch, train, view)
         head_outs = self.head(out["levels"])
         pts, valids = self._head_points_and_valid(out["valid_count"],
                                                   batch["origin"])
@@ -329,22 +377,33 @@ class MVSDet(nn.Module):
                 out["gaussians"], batch, tuple(batch["gt_images"].shape[1:3]))
         return result
 
-    def loss(self, batch: Dict[str, torch.Tensor]
-             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    def loss(self, batch: Dict[str, torch.Tensor], data_group=None,
+             view=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Training losses (`MVSDet.loss`, mvsdet.py:462-498): the head's
         center, bbox and cls terms, `loss_nvs` (MSE of the rendered
         targets) when the batch holds them, and `loss_depth` (L1 against
         the source views' depth resized to the feature grid) with
         `depth_supervision`.  Runs the forward in train mode.
 
-        Returns (total, aux): aux holds every term and `n_pos`.
+        ``data_group``: the ranks whose scenes' positive counts the head
+        loss averages (mvsdet_tpu/models/head.py:245-248); ``view``: the
+        group the scene's views are sharded over (`extract_feat`).  The
+        depth L1 and view sharding together raise: the JAX module compares
+        a shard's depth maps with every view's estimate there
+        (`parallel/sharding.py`, ROADMAP §3).
+
+        Returns (total, aux): aux holds every term and `n_pos` (this
+        scene's).
         """
         mc = self.cfg
-        result = self(batch, train=True)
+        if view is not None and mc.depth_supervision:
+            raise ValueError(DEPTH_SUPERVISION_SHARDED)
+        result = self(batch, train=True, view=view)
         loss_fn = head_loss_rotated if mc.head.with_yaw else head_loss
         losses, aux = loss_fn(
             result["head_outs"], result["points"], result["valids"],
-            batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"], mc.head)
+            batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"], mc.head,
+            data_group=data_group)
         if "rendered" in result and mc.rgb_supervision:
             losses["loss_nvs"] = torch.mean(
                 (result["rendered"] - batch["gt_images"]) ** 2)

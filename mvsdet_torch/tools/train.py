@@ -4,23 +4,33 @@
         --data-root data/scannet --work-dir work_dirs/mvsdet_torch
     python -m mvsdet_torch.tools.train --synthetic 8 --dtype bfloat16
     python -m mvsdet_torch.tools.train --tiny --synthetic 2 --steps 3 --device cpu
+    torchrun --standalone --nproc_per_node 4 -m mvsdet_torch.tools.train \
+        --synthetic 8 --data-parallel 2 --view-parallel 2
 
 Trains on one card (unless `--device cpu`): `create_train_state`, then
 one `training.loop.fit` per epoch, which stages the scenes one ahead on a
-thread (`data/prefetch.py`).  Each epoch ends with a save of `latest`
-and, with `--val-infos` or `--val-synthetic`, an evaluation whose best
-`mAP_0.25` is kept as `best` (the reference's val_cfg + CheckpointHook
+thread (`data/prefetch.py`).  Under torchrun, `--data-parallel D
+--view-parallel V` trains on a D x V mesh of its D * V processes
+(`parallel/`, the JAX launcher's `shard_map` step): at step k, data row d
+takes scene k * D + d of the seeded stream and its V ranks split that
+scene's views; each rank takes the card `LOCAL_RANK` names (modulo the
+cards there are), on NCCL where each has one of its own, on gloo where
+they share.  Rank 0 alone logs, evaluates and saves; the others wait for
+it at a barrier.  An epoch is still `steps_per_epoch` steps, as the JAX
+launcher counts it (tools/train.py:129).  Each epoch ends with a save of
+`latest` and, with `--val-infos` or `--val-synthetic`, an evaluation whose
+best `mAP_0.25` is kept as `best` (the reference's val_cfg + CheckpointHook
 save_best, mvsdet_res50_2x_low_res.py:164-172).  Every record goes to
 `<work-dir>/train_log.jsonl`: step records (`step`, `time` in seconds
 since the first step began, read after the step's losses reach the
 host, and the loss terms) for every `--log-every`-th step of an epoch
 and its last, checkpoint saves (`saved`, `save_s`) and evaluations
-(`eval`, the metric dict).  `--resume` continues at the checkpoint's
-step.
+(`eval`, the metric dict), after a first record of the layout
+(`backend`, `world`, `data_parallel`, `view_parallel`).  `--resume`
+continues at the checkpoint's step.
 
-Not accepted yet: `--model nerfdet` (legacy NeRF-Det) and
-`--data-parallel` / `--view-parallel` with multi-host, which wait for the
-port's NeRF-Det and parallelism.
+Not accepted yet: `--model nerfdet` (legacy NeRF-Det), which waits for
+the port's NeRF-Det.
 """
 
 from __future__ import annotations
@@ -34,12 +44,15 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from mvsdet_torch.config import Config, scannet_config, tiny_test_config
 from mvsdet_torch.data.infos import load_infos
 from mvsdet_torch.data.pipeline import ScenePipeline, scene_iterator
 from mvsdet_torch.data.synthetic import make_synthetic_scene
 from mvsdet_torch.evaluation.harness import evaluate_scenes, make_predict_fn
+from mvsdet_torch.models.mvsdet import DEPTH_SUPERVISION_SHARDED
+from mvsdet_torch.parallel import multihost
 from mvsdet_torch.training.loop import (TrainState, create_train_state, fit,
                                         load_checkpoint,
                                         load_pretrained_backbone,
@@ -83,8 +96,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--log-every", type=int, default=10,
                    help="write a step record every N steps of an epoch "
                         "(and its last)")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="scenes per step, one per data row of ranks "
+                        "(under torchrun)")
+    p.add_argument("--view-parallel", type=int, default=1,
+                   help="ranks that split each scene's views (under "
+                        "torchrun)")
     p.add_argument("--device", default="cuda",
-                   help="'cuda' (the default; raises without a card) or "
+                   help="'cuda' (the default; raises without a card; "
+                        "under torchrun the card LOCAL_RANK names) or "
                         "'cpu'")
     return p.parse_args(argv)
 
@@ -103,8 +123,22 @@ def configure(cfg: Config, args: argparse.Namespace) -> Config:
 
 def train(cfg: Config, args: argparse.Namespace) -> TrainState:
     """Run the training ``args`` ask for with ``cfg`` (already configured)
-    and return the final train state."""
-    device = torch.device(args.device)
+    and return the final train state.  In a process group (`main` under
+    torchrun) the ranks form a `--data-parallel` x `--view-parallel`
+    mesh."""
+    device = multihost.local_device(args.device)
+    n_dp, n_vp = args.data_parallel, args.view_parallel
+    if n_vp > 1 and cfg.model.depth_supervision:
+        raise ValueError(DEPTH_SUPERVISION_SHARDED)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if n_dp * n_vp != world:
+        raise ValueError(f"--data-parallel {n_dp} x --view-parallel {n_vp} "
+                         f"needs {n_dp * n_vp} processes (torchrun "
+                         f"--nproc_per_node), not {world}")
+    mesh = multihost.make_global_mesh(n_dp, n_vp) if dist.is_initialized() \
+        else None
+    row = mesh.data_index if mesh is not None else 0
+    lead = mesh is None or mesh.rank == 0
     n_targets = cfg.data.nerf_target_views_train
     if args.synthetic:
         scenes = [make_synthetic_scene(cfg, seed=s,
@@ -128,12 +162,14 @@ def train(cfg: Config, args: argparse.Namespace) -> TrainState:
     if args.resume:
         load_checkpoint(args.resume, state)
 
+    # step k of data row d: scene k * D + d of the one seeded stream
     if args.synthetic:
-        batches = (scenes[i % len(scenes)]
+        batches = (scenes[(i * n_dp + row) % len(scenes)]
                    for i in itertools.count(state.step))
     else:
-        batches = scene_iterator(infos, ScenePipeline(cfg, training=True),
-                                 seed=args.seed, repeat=0)
+        batches = itertools.islice(
+            scene_iterator(infos, ScenePipeline(cfg, training=True),
+                           seed=args.seed, repeat=0), row, None, n_dp)
 
     val_scenes = None
     if args.val_synthetic:
@@ -154,11 +190,10 @@ def train(cfg: Config, args: argparse.Namespace) -> TrainState:
         return (val_pipeline(s, np.random.RandomState(args.seed + i))
                 for i, s in enumerate(val_infos))
 
-    do_eval = bool(args.val_synthetic or args.val_infos)
+    do_eval = lead and bool(args.val_synthetic or args.val_infos)
     predict = make_predict_fn(state.model, device) if do_eval else None
     best_map = -1.0
 
-    os.makedirs(args.work_dir, exist_ok=True)
     log_path = os.path.join(args.work_dir, "train_log.jsonl")
 
     def log(rec):
@@ -170,6 +205,12 @@ def train(cfg: Config, args: argparse.Namespace) -> TrainState:
         t0 = time.perf_counter()
         save_checkpoint(os.path.join(args.work_dir, name), state)
         log({"step": step, "saved": name, "save_s": time.perf_counter() - t0})
+
+    if lead:
+        os.makedirs(args.work_dir, exist_ok=True)
+        log({"backend": dist.get_backend() if mesh is not None else None,
+             "world": world, "data_parallel": n_dp, "view_parallel": n_vp,
+             "device": str(device)})
 
     t_start = time.perf_counter()
     while state.step < total_steps:
@@ -183,9 +224,11 @@ def train(cfg: Config, args: argparse.Namespace) -> TrainState:
 
         # islice: fit's prefetch thread draws nothing past the epoch's end
         fit(state, itertools.islice(batches, n), n,
-            log_every=args.log_every, log_fn=log_step)
+            log_every=args.log_every, log_fn=log_step if lead else None,
+            mesh=mesh)
         last = state.step - 1
-        save("latest", last)
+        if lead:
+            save("latest", last)
         if do_eval:
             state.model.eval()
             results = evaluate_scenes(predict, val_iter(),
@@ -195,16 +238,25 @@ def train(cfg: Config, args: argparse.Namespace) -> TrainState:
             if results.get("mAP_0.25", 0.0) > best_map:
                 best_map = results["mAP_0.25"]
                 save("best", last)
+        if mesh is not None:
+            dist.barrier()          # the others wait for rank 0's saves
     return state
 
 
 def main(argv=None) -> TrainState:
+    """Parse ``argv`` and train; under torchrun, join its process group
+    first and leave it at the end."""
     args = parse_args(argv)
     # float32 is full float32, as the JAX package computes it: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = tiny_test_config() if args.tiny else scannet_config()
-    return train(configure(cfg, args), args)
+    joined = multihost.initialize(multihost.local_device(args.device))
+    try:
+        return train(configure(cfg, args), args)
+    finally:
+        if joined:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -4,8 +4,9 @@ mvsdet_tpu/training/loop.py).
 `train_step` is the JAX `train_step` (mvsdet_tpu/training/loop.py:208-237)
 for one scene on one card: the model's loss in train mode, backward, the
 global-norm clip, AdamW, and the MultiStepLR step.  It reads nothing back
-to the host; its metrics stay device tensors.  `fit` drives it over a
-batch iterator staged one ahead on a thread (`data/prefetch.py`).
+to the host; its metrics stay device tensors.  `fit` drives it, or
+the data x view sharded step of `parallel/sharding.py`, over a batch
+iterator staged one ahead on a thread (`data/prefetch.py`).
 Checkpoints are `torch.save` files of the model, optimizer, scheduler and
 step; `create_predict_state` builds an eval model from one (the test
 launcher's), and `load_pretrained_backbone` swaps ImageNet weights into a
@@ -15,6 +16,7 @@ train state's ResNet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Iterable, Optional
 
 import torch
@@ -24,7 +26,9 @@ from mvsdet_torch.data.prefetch import prefetch_iterator, stage_batch
 from mvsdet_torch.models.mvsdet import MVSDet, build_model, init_weights
 from mvsdet_torch.models.resnet import (load_torchvision_checkpoint,
                                         port_torchvision_state_dict)
-from mvsdet_torch.training.optim import build_optimizer, clip_by_global_norm_
+from mvsdet_torch.parallel.mesh import Mesh
+from mvsdet_torch.parallel.sharding import make_sharded_train_step, shard_batch
+from mvsdet_torch.training.optim import apply_gradients, build_optimizer
 
 
 @dataclasses.dataclass
@@ -76,17 +80,7 @@ def train_step(state: TrainState,
     state.optimizer.zero_grad(set_to_none=True)
     total, aux = state.model.loss(batch)
     total.backward()
-    params = [p for g in state.optimizer.param_groups for p in g["params"]]
-    for p in params:
-        if p.grad is None:
-            # a parameter the loss does not reach (FPN levels 1-3): a zero
-            # gradient, so that AdamW still decays it as optax decays
-            # every leaf
-            p.grad = torch.zeros_like(p)
-    clip_by_global_norm_(params, state.max_norm)
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    apply_gradients(state)
     return {"loss": total.detach(), **{k: v.detach() for k, v in aux.items()}}
 
 
@@ -105,20 +99,33 @@ def fit(state: TrainState, batches: Iterable[Dict], num_steps: int,
         log_every: int = 10,
         log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
         checkpoint_path: Optional[str] = None,
-        checkpoint_every: Optional[int] = None) -> TrainState:
+        checkpoint_every: Optional[int] = None,
+        mesh: Optional[Mesh] = None) -> TrainState:
     """Step-driven training loop.  The next batch is staged on the device
     by a background thread while the card runs the current step; the host
-    reads the metrics only on the steps it logs."""
+    reads the metrics only on the steps it logs.
+
+    With ``mesh``, ``batches`` are this rank's data row's scenes, each
+    step is the sharded step (`make_sharded_train_step`), the thread
+    stages only this rank's view slice of each (`shard_batch`), and rank 0
+    alone writes the checkpoints (every rank holds the same state).
+    """
     device = next(state.model.parameters()).device
+    if mesh is None:
+        step = functools.partial(train_step, state)
+    else:
+        step = make_sharded_train_step(state, mesh)
+        batches = (shard_batch(b, mesh) for b in batches)
     it = prefetch_iterator(batches, device)
     try:
         for i in range(num_steps):
-            metrics = train_step(state, next(it))
+            metrics = step(next(it))
             if log_fn is not None and (i % log_every == 0
                                        or i == num_steps - 1):
                 log_fn(i, {k: float(v) for k, v in metrics.items()})
             if (checkpoint_path is not None and checkpoint_every
-                    and (i + 1) % checkpoint_every == 0):
+                    and (i + 1) % checkpoint_every == 0
+                    and (mesh is None or mesh.rank == 0)):
                 save_checkpoint(checkpoint_path, state)
     finally:
         it.close()

@@ -61,3 +61,19 @@ def clip_by_global_norm_(params: Iterable[torch.Tensor],
     torch._foreach_div_(grads, torch.where(keep, one, g_norm))
     torch._foreach_mul_(grads, torch.where(keep, one, one * max_norm))
     return g_norm
+
+
+def apply_gradients(state) -> None:
+    """The update after backward, on a train state's model, optimizer and
+    scheduler (mvsdet_tpu/training/loop.py:208-237, `tx.update`): a zero
+    gradient for each parameter the loss does not reach (FPN levels 1-3),
+    so that AdamW still decays it as optax decays every leaf (ROADMAP
+    T13); the global-norm clip; AdamW; MultiStepLR; the step count."""
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    clip_by_global_norm_(params, state.max_norm)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1

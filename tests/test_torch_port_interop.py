@@ -37,6 +37,10 @@ M13_MODULES = (
     "mvsdet_torch.data.pipeline", "mvsdet_torch.evaluation.indoor_eval",
     "mvsdet_torch.evaluation.nvs_metrics", "mvsdet_torch.evaluation.harness",
     "mvsdet_torch.tools.train", "mvsdet_torch.tools.test")
+# the data x view parallelism, named for the same reason
+M15_MODULES = (
+    "mvsdet_torch.parallel.mesh", "mvsdet_torch.parallel.collectives",
+    "mvsdet_torch.parallel.sharding", "mvsdet_torch.parallel.multihost")
 
 
 def _leaf(path, shape, rng):
@@ -205,7 +209,8 @@ class TestEntryPoints:
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mvsdet_tpu')]\n"
             "assert not bad, bad\n"
-            f"missing = [m for m in {M13_MODULES!r} if m not in sys.modules]\n"
+            f"missing = [m for m in {M13_MODULES + M15_MODULES!r} "
+            "if m not in sys.modules]\n"
             "assert not missing, missing\n")
         env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
                "JAX_PLATFORMS": "cpu"}
@@ -227,4 +232,4 @@ class TestEntryPoints:
         assert len(sources) > 20 and not bad, bad
         scanned = {str(p.relative_to(REPO).with_suffix("")).replace("/", ".")
                    for p in sources}
-        assert set(M13_MODULES) <= scanned
+        assert set(M13_MODULES + M15_MODULES) <= scanned

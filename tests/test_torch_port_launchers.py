@@ -11,6 +11,10 @@ launchers on the CPU, held against the JAX package.
   `create_predict_state` loading it bit-equal.
 - `load_pretrained_backbone` on a torchvision-named state dict against
   the JAX package's `port_torchvision_state_dict`.
+- The launchers under torchrun with `--data-parallel 2` on the CPU
+  (gloo): `train` writes one log and one checkpoint, from rank 0, and its
+  ranks end with equal parameters (bit for bit, also equal to that
+  checkpoint's); `test` prints the metric dict of one process.
 - The launchers run on the card unless `--device cpu` is given, and
   refuse the options that wait for later parts of the port.
 """
@@ -28,6 +32,7 @@ import torch
 
 import jax.numpy as jnp
 
+import _parallel_ranks as ranks
 from fixtures.scannet_fixture import make_raw_fixture
 
 from mvsdet_tpu.config import tiny_test_config as jx_tiny_test_config
@@ -300,11 +305,86 @@ def test_launchers_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("launcher,flags", [
     (train_launcher, ["--model", "nerfdet"]),
-    (train_launcher, ["--data-parallel", "2"]),
-    (train_launcher, ["--view-parallel", "2"]),
-    (test_launcher, ["--data-parallel", "2"]),
     (test_launcher, ["--diagnostics"]),
     (test_launcher, ["--vis-dir", "out"])])
 def test_launchers_refuse_what_waits_for_later_slices(launcher, flags):
     with pytest.raises(SystemExit):
         launcher.parse_args(flags)
+
+
+@pytest.mark.parametrize("launcher,flags", [
+    (train_launcher, ["--data-parallel", "2"]),
+    (train_launcher, ["--view-parallel", "2"]),
+    (test_launcher, ["--data-parallel", "2"])])
+def test_launchers_take_the_parallel_flags(launcher, flags):
+    args = launcher.parse_args(flags)
+    assert getattr(args, flags[0][2:].replace("-", "_")) == 2
+    # outside a process group of that size they refuse to start
+    with pytest.raises(ValueError, match="processes"):
+        if launcher is train_launcher:
+            launcher.train(tiny_test_config(), launcher.parse_args(
+                flags + ["--tiny", "--synthetic", "1", "--device", "cpu"]))
+        else:
+            launcher.evaluate(tiny_test_config(), launcher.parse_args(
+                flags + ["--synthetic", "1", "--device", "cpu"]))
+
+
+TORCHRUN = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc_per_node", "2"]
+
+
+def torchrun(program, args, cwd):
+    """``program`` (``-m module`` or a script) under torchrun on 2
+    processes on the CPU: its stdout."""
+    res = subprocess.run(TORCHRUN + program + args, cwd=cwd,
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, PYTHONPATH=str(REPO)))
+    assert res.returncode == 0, res.stderr[-4000:]
+    return res.stdout
+
+
+def test_train_launcher_data_parallel_under_torchrun(tmp_path):
+    train_args = ["--tiny", "--synthetic", "2", "--steps", "2",
+                  "--data-parallel", "2", "--device", "cpu",
+                  "--log-every", "1"]
+    # each process runs `mvsdet_torch.tools.train`'s main, then saves its
+    # parameters' digest (torchrun's processes keep their states)
+    work, out = tmp_path / "torchrun", tmp_path / "ranks"
+    out.mkdir()
+    stdout = torchrun([str(REPO / "tests" / "_parallel_ranks.py"), str(out)],
+                      train_args + ["--work-dir", str(work)], tmp_path)
+    log = records(work)
+    assert log[0] == {"backend": "gloo", "world": 2, "data_parallel": 2,
+                      "view_parallel": 1, "device": "cpu"}
+    steps = [r for r in log if "loss" in r]
+    assert [r["step"] for r in steps] == [0, 1]
+    assert all(np.isfinite(v) for r in steps for v in r.values())
+    assert [r["saved"] for r in log if "saved" in r] == ["latest"]
+    assert sorted(os.listdir(work)) == ["latest", "train_log.jsonl"]
+    # rank 0 alone prints (and writes) the records
+    assert stdout.count('"saved": "latest"') == 1
+    digests = {str(ranks.load(out, r)["digest"]) for r in range(2)}
+    assert len(digests) == 1 and int(ranks.load(out, 0)["step"]) == 2
+    model = create_predict_state(tiny_test_config(), str(work / "latest"),
+                                 device="cpu")
+    assert ranks.params_digest(model) in digests
+
+
+def test_test_launcher_data_parallel_matches_one_process(tmp_path):
+    test_args = ["--tiny", "--synthetic", "3", "--device", "cpu"]
+    stdout = torchrun(["-m", "mvsdet_torch.tools.test"],
+                      test_args + ["--data-parallel", "2"], tmp_path)
+    lines = [json.loads(line) for line in stdout.splitlines()
+             if line.startswith("{")]
+    assert len(lines) == 1                 # rank 0's
+    got = lines[0]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)               # torchrun's processes' count
+    try:
+        want = test_launcher.main(test_args)
+    finally:
+        torch.set_num_threads(threads)
+    timing = {"predict_s_first", "predict_s_per_scene"}
+    assert set(got) == set(want) and {"mAP_0.25", "psnr", "ssim"} <= set(got)
+    for key in set(want) - timing:
+        assert got[key] == want[key], key
