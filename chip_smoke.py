@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's predict path and training step on one NVIDIA card, in
 the ScanNet and the ARKit configurations, alone and sharded over rank
-processes, and check them.
+processes, and the legacy NeRF-Det's training and evaluation, and check
+them.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -173,6 +174,36 @@ Phases, each printed as one JSON line:
            within 1e-3 px of its boxes, no active pair outside its slot's
            box; and the work the cull leaves (pairs in a box, listed
            (warp patch, slot) pairs, per-CTA load)
+  nerfdet_train
+           the legacy NeRF-Det (`create_nerfdet_state(scannet_config())`,
+           seeded random weights, float32) for 3 steps of the 40-view,
+           2-target scene through `fit`, 2048 rays of 64 samples a step,
+           launch counts set to 0 just before and read just after (none
+           of K1-K5 or the index may launch: NeRF-Det's lift is a
+           nearest-pixel gather); each step's loss terms and latency, the
+           first and steady step times and the peak memory; losses
+           finite, `loss_nvs` above 0, 90% of the trainable parameters
+           moved
+  nerfdet_vs_cpu
+           the same model on an 8-view scene with 2 targets and fixed
+           rays: one loss and gradient on the card (cuDNN deterministic,
+           deterministic algorithms) against the same on the CPU: loss
+           terms <= 1e-4 relative, and the largest leaf's and all the
+           gradients' distance at most twice the witness's, the CPU step
+           with the source views reversed and every parameter one ulp up
+           (a change of summation order and of the weights' last bits);
+           then one AdamW update of the card's weights, and a predict of
+           them on the card and on the CPU (score_thr 0: random weights
+           score every box under 0.01): the kept boxes and labels equal
+           under the mask
+  launch_train_nerfdet
+           the train launcher in process as `python -m
+           mvsdet_torch.tools.train --model nerfdet --synthetic 2 --steps
+           4 --val-synthetic 1` (into build/launch_nerfdet): four finite
+           step records with `loss_nvs` above 0, an evaluation of one
+           80-view scene after each epoch of 2 steps, `latest` and `best`
+           written, no kernel launched; the step, evaluation and save
+           times
   kernels  every kernel (K1-K5 and the lift backward's row index,
            `lift_rows`) with its launches in the train run (and, for K1
            and K3, in the predict run), its error, its time queued behind
@@ -1312,6 +1343,216 @@ def launch_train_parallel_phase():
               f"{r['bf16_launches']}")
 
 
+# -- the legacy NeRF-Det: no kernel of ops/csrc on its path ------------------
+
+NERFDET_STEPS = 3
+NERFDET_CPU_VIEWS = 8       # the CPU side of nerfdet_vs_cpu stays in seconds
+
+
+def nerfdet_phases(cfg, scene, reset_launches, read_launches):
+    """`nerfdet_train`, `nerfdet_vs_cpu` and `launch_train_nerfdet`: the
+    legacy NeRF-Det at `scannet_config()` width in float32 (40 source views
+    and 2 targets, 2048 rays of 64 samples a step), each run with the
+    launch counts set to 0 just before and read just after: NeRF-Det
+    launches none of the kernels, and every count must stay 0."""
+    from mvsdet_torch.data.synthetic import make_synthetic_scene
+    from mvsdet_torch.evaluation.harness import make_predict_fn
+    from mvsdet_torch.models.mvsdet import init_weights
+    from mvsdet_torch.models.nerfdet import NerfDetLegacy
+    from mvsdet_torch.tools import train as train_launcher
+    from mvsdet_torch.training.loop import (TrainState, create_nerfdet_state,
+                                            fit)
+    from mvsdet_torch.training.optim import apply_gradients, build_optimizer
+
+    def check_none_launched(launches, bf16_launches, run):
+        check(not any(launches.values()) and not any(bf16_launches.values()),
+              f"{run}: NeRF-Det launched a kernel: {launches}, bf16 "
+              f"{bf16_launches}")
+
+    # -- nerfdet_train: NERFDET_STEPS steps through fit --------------------
+    state = create_nerfdet_state(
+        cfg, device="cuda", generator=torch.Generator().manual_seed(cfg.seed))
+    model = state.model
+    params0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    step_logs = []
+    t_start = [0.0]
+
+    def log_step(i, metrics):
+        now = time.perf_counter()
+        step_logs.append(dict(step=i, latency_ms=(now - t_start[0]) * 1e3,
+                              **metrics))
+        t_start[0] = now
+        emit(phase="nerfdet_train", **step_logs[-1])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t_start[0] = time.perf_counter()
+    fit(state, (scene for _ in range(NERFDET_STEPS)), NERFDET_STEPS,
+        log_every=1, log_fn=log_step)
+    launches, bf16_launches = read_launches()
+    steady = [s["latency_ms"] for s in step_logs[1:]]
+    trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+    moved = sum(not torch.equal(model.get_parameter(n).detach(), params0[n])
+                for n in trainable)
+    emit(phase="nerfdet_train", steps=NERFDET_STEPS,
+         views=cfg.data.n_src_train,
+         targets=cfg.data.nerf_target_views_train, n_rand=model.n_rand,
+         n_samples=model.n_samples, launches=launches,
+         bf16_launches=bf16_launches,
+         first_step_ms=step_logs[0]["latency_ms"],
+         steady_step_ms=statistics.mean(steady), steady_steps_ms=steady,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+         parameters_moved=moved, trainable_parameters=len(trainable))
+    check_none_launched(launches, bf16_launches, "nerfdet_train")
+    for log in step_logs:
+        check(all(np.isfinite(v) for k, v in log.items()
+                  if k not in ("step", "latency_ms")),
+              f"nerfdet_train step {log['step']}: a loss is not finite: "
+              f"{log}")
+        check(log["loss_nvs"] > 0 and "loss_depth" in log,
+              f"nerfdet_train step {log['step']}: no colour loss: {log}")
+    check(moved > 0.9 * len(trainable),
+          f"nerfdet_train: only {moved} of {len(trainable)} trainable "
+          f"parameters moved")
+    del state, model, params0
+    torch.cuda.empty_cache()
+
+    # -- nerfdet_vs_cpu: one loss and gradient, card against CPU -----------
+    small = make_synthetic_scene(cfg, seed=1, n_views=NERFDET_CPU_VIEWS,
+                                 n_targets=cfg.data.nerf_target_views_train)
+    base = NerfDetLegacy(cfg.model)
+    init_weights(base, torch.Generator().manual_seed(cfg.seed))
+    base.train()
+    cpu_batch = {k: torch.as_tensor(v) for k, v in small.items()}
+    rays = base.draw_rays(cpu_batch, torch.Generator().manual_seed(7))
+
+    def loss_and_grads(model, batch, rays):
+        t0 = time.perf_counter()
+        total, aux = model.loss(batch, rays=rays)
+        total.backward()
+        values = {k: v.item() for k, v in aux.items()} | {"loss": total.item()}
+        grads = {k: p.grad.detach().cpu() for k, p in model.named_parameters()
+                 if p.grad is not None}
+        return values, grads, time.perf_counter() - t0
+
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    on_card = copy.deepcopy(base).cuda()
+    reset_launches()
+    card, card_grads, card_s = loss_and_grads(
+        on_card, {k: v.cuda() for k, v in cpu_batch.items()},
+        {k: v.cuda() for k, v in rays.items()})
+    launches, bf16_launches = read_launches()
+    torch.backends.cudnn.deterministic = False
+    torch.use_deterministic_algorithms(False)
+    cpu, cpu_grads, cpu_s = loss_and_grads(copy.deepcopy(base), cpu_batch,
+                                           rays)
+    # the witness: the CPU step with the source views in reverse order and
+    # every parameter one ulp up, a change of summation order and of the
+    # weights' last bits alone
+    nudged = copy.deepcopy(base)
+    with torch.no_grad():
+        for p in nudged.parameters():
+            p.copy_(torch.nextafter(p, torch.tensor(math.inf)))
+    reversed_batch = dict(cpu_batch, **{
+        k: cpu_batch[k].flip(0) for k in ("images", "denorm_images", "w2c")})
+    _, witness_grads, _ = loss_and_grads(nudged, reversed_batch, rays)
+    loss_rel = {k: abs(card[k] - cpu[k]) / max(abs(cpu[k]), 1e-30)
+                for k in cpu}
+    grad_rel = _rel_by_leaf(card_grads, cpu_grads)
+    witness_rel = _rel_by_leaf(witness_grads, cpu_grads)
+    worst = sorted(grad_rel.items(), key=lambda kv: -kv[1])[:5]
+    all_rel = _rel_all(card_grads, cpu_grads)
+    witness_all = _rel_all(witness_grads, cpu_grads)
+    witness_max = max(witness_rel.values())
+
+    # predict with the card's weights after that step's update, on the
+    # card and on the CPU.  Random weights score every box near 0.005,
+    # under score_thr (0.01), so the predicts keep every NMS survivor
+    state = TrainState(on_card, *build_optimizer(cfg.optim, on_card),
+                       max_norm=cfg.optim.grad_clip_norm)
+    apply_gradients(state)
+    on_card.cfg = dataclasses.replace(cfg.model, head=dataclasses.replace(
+        cfg.model.head, score_thr=0.0))
+    on_card.eval()
+    pred_card = make_predict_fn(on_card, "cuda")(small)
+    pred_cpu = make_predict_fn(copy.deepcopy(on_card), "cpu")(small)
+    mask = pred_card["mask"]
+    preds_equal = bool(
+        np.array_equal(mask, pred_cpu["mask"])
+        and np.array_equal(pred_card["labels"][mask], pred_cpu["labels"][mask])
+        and np.allclose(pred_card["boxes"][mask], pred_cpu["boxes"][mask],
+                        rtol=1e-4, atol=1e-4))
+    score_err = float(np.abs(pred_card["scores"][mask]
+                             - pred_cpu["scores"][mask]).max(initial=0.0))
+    emit(phase="nerfdet_vs_cpu", views=NERFDET_CPU_VIEWS,
+         cpu_threads=torch.get_num_threads(), loss_rel_err=loss_rel,
+         max_grad_rel_err=worst[0][1], worst_grads=worst,
+         all_grads_rel_err=all_rel, witness_max_grad_rel_err=witness_max,
+         witness_all_grads_rel_err=witness_all, n_grads=len(grad_rel),
+         card_s=card_s, cpu_s=cpu_s, launches=launches,
+         bf16_launches=bf16_launches, kept_boxes=int(mask.sum()),
+         predict_equal_under_mask=preds_equal, max_score_abs_err=score_err,
+         losses=card)
+    check_none_launched(launches, bf16_launches, "nerfdet_vs_cpu")
+    check(set(card_grads) == set(cpu_grads),
+          "nerfdet_vs_cpu: the card and the CPU give gradients to different "
+          "parameters")
+    check(cpu["loss_nvs"] > 0, f"nerfdet_vs_cpu: no colour loss: {cpu}")
+    check(max(loss_rel.values()) <= 1e-4,
+          f"nerfdet_vs_cpu: loss terms differ: {loss_rel}")
+    check(worst[0][1] <= 2 * witness_max and all_rel <= 2 * witness_all,
+          f"nerfdet_vs_cpu: gradients differ from the CPU's by {worst}, all "
+          f"{all_rel}, beyond twice the witness's {witness_max}, all "
+          f"{witness_all}")
+    check(mask.sum() > 0 and preds_equal,
+          f"nerfdet_vs_cpu: the predicts' kept boxes or labels differ "
+          f"({int(mask.sum())} kept on the card)")
+    del base, on_card, state, nudged
+    torch.cuda.empty_cache()
+
+    # -- launch_train_nerfdet: the train launcher as a user runs it --------
+    work = Path(__file__).resolve().parent / "build" / "launch_nerfdet"
+    shutil.rmtree(work, ignore_errors=True)
+    reset_launches()
+    state = train_launcher.main([
+        "--model", "nerfdet", "--synthetic", "2", "--steps", "4",
+        "--val-synthetic", "1", "--work-dir", str(work)])
+    launches, bf16_launches = read_launches()
+    with open(work / "train_log.jsonl") as f:
+        log = [json.loads(line) for line in f]
+    steps = [r for r in log if "loss" in r]
+    evals = [r["eval"] for r in log if "eval" in r]
+    saves = [r for r in log if "saved" in r]
+    step_ms = [(b["time"] - a["time"]) * 1e3
+               for a, b in zip(log, log[1:]) if "loss" in a and "loss" in b]
+    emit(phase="launch_train_nerfdet", steps=len(steps),
+         views=cfg.data.n_src_train, eval_views=cfg.data.n_src_test,
+         first_step_ms=steps[0]["time"] * 1e3, steady_step_ms=step_ms,
+         eval_predict_s=[e["predict_s_first"] for e in evals],
+         eval_map_025=[e["mAP_0.25"] for e in evals],
+         save_s={f"{r['saved']}@{r['step']}": r["save_s"] for r in saves},
+         losses=[r["loss"] for r in steps],
+         loss_nvs=[r["loss_nvs"] for r in steps], launches=launches,
+         bf16_launches=bf16_launches)
+    check_none_launched(launches, bf16_launches, "launch_train_nerfdet")
+    check(len(steps) == 4 and all(np.isfinite(v) for r in steps
+                                  for v in r.values())
+          and all(r["loss_nvs"] > 0 for r in steps),
+          f"launch_train_nerfdet: step records {steps}")
+    # an epoch is the 2 scenes: an evaluation after each
+    check(len(evals) == 2 and all("mAP_0.25" in e for e in evals),
+          f"launch_train_nerfdet: evaluations {evals}")
+    check((work / "latest").is_file() and (work / "best").is_file(),
+          "launch_train_nerfdet: latest or best was not written")
+    check(type(state.model).__name__ == "NerfDetLegacy" and state.step == 4,
+          f"launch_train_nerfdet: {type(state.model).__name__} at step "
+          f"{state.step}")
+    del state
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
@@ -2088,6 +2329,9 @@ def main(argv=None) -> int:
     parallel_train_phase(cfg)
     parallel_predict_phase(detecting[0], N_SCENES, *detecting[1:])
     launch_train_parallel_phase()
+
+    # -- the legacy NeRF-Det ------------------------------------------------
+    nerfdet_phases(cfg, scene, reset_launches, read_launches)
 
     # -- kernels line ----------------------------------------------------
     args = {name: detached(r.args) for name, (_, r) in recorders.items()}

@@ -22,8 +22,11 @@ scenes and views over ranks (`parallel/`, the JAX package's `shard_map`
 step), all on the card unless the caller asks for the CPU, and all
 computing in float32
 or, given `dtype=torch.bfloat16`, in bf16 as the JAX package's `dtype`
-does (parameters and optimizer state float32).  The layout mirrors the JAX
-package so each module's counterpart is found by path.  This package
+does (parameters and optimizer state float32).  The legacy NeRF-Det
+(`models.nerfdet`, float32) trains through
+`training.loop.create_nerfdet_state` and `fit` and the train launcher's
+`--model nerfdet`; no kernel of `ops/csrc` is on its path.  The layout
+mirrors the JAX package so each module's counterpart is found by path.  This package
 imports nothing of JAX or of `mvsdet_tpu`.
 """
 

@@ -34,7 +34,8 @@ from mvsdet_torch.parallel.mesh import Mesh
 
 def make_predict_fn(model: MVSDet, device="cuda"
                     ) -> Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]:
-    """fn(host numpy batch) -> host numpy prediction dict.
+    """fn(host numpy batch) -> host numpy prediction dict, for `MVSDet` or
+    `NerfDetLegacy` (whose prediction has no rendered view and no depth).
 
     The model is moved to ``device``, which is the card unless the caller
     asks for the CPU (raises when CUDA is missing).  Each batch is copied

@@ -26,6 +26,45 @@ def scale_intrinsics(intrinsic: torch.Tensor, ratio: float) -> torch.Tensor:
     return intrinsic * scale[:, None]
 
 
+def compute_projection(w2c: torch.Tensor, intrinsic: torch.Tensor,
+                       ratio: float) -> torch.Tensor:
+    """Per-view world->image projection K[R|t] at feature resolution
+    (`MVSDet._compute_projection`, mvsdet.py:1124-1156):
+    ``P_i = (K / ratio)[:3, :3] @ E_i[:3]``.
+
+    Args:
+      w2c: (N, 4, 4); intrinsic: (4, 4) shared K or (N, 4, 4) per view;
+      ratio: original-resolution-to-feature-resolution scale factor.
+
+    Returns:
+      (N, 3, 4).
+    """
+    k = scale_intrinsics(intrinsic, ratio)
+    if k.ndim == 2:
+        k = k.expand((w2c.shape[0],) + k.shape)
+    return feinsum("nij,njk->nik", k[:, :3, :3], w2c[:, :3, :4])
+
+
+def world_to_image(points: torch.Tensor, projection: torch.Tensor):
+    """Project world points through one (3, 4) projection.
+
+    A depth within 1e-8 of 0 divides by sign(z) * 1e-8 + 1e-12 instead, as
+    the JAX function guards it (so z = 0 exactly divides by 1e-12).
+
+    Args:
+      points: (..., 3); projection: (3, 4).
+
+    Returns:
+      (xy, z): (..., 2) pixel coordinates and (...,) camera-space depth.
+    """
+    homo = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+    p = feinsum("ij,...j->...i", projection, homo)
+    z = p[..., 2:3]
+    xy = p[..., :2] / torch.where(z.abs() < 1e-8,
+                                  torch.sign(z) * 1e-8 + 1e-12, z)
+    return xy, p[..., 2]
+
+
 def full_projection(w2c: torch.Tensor, intrinsic: torch.Tensor) -> torch.Tensor:
     """4x4 projection ``K @ w2c`` used by the plane sweep (mvsdet.py:259).
 

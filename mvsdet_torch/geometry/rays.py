@@ -81,3 +81,28 @@ def depth_scale_map(height: int, width: int,
                                  device=k.device), k)
     d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
     return d[..., 2:3]
+
+
+def pixel_ray_dirs(pixelcoords: torch.Tensor, intrinsic: torch.Tensor,
+                   rot_c2w: torch.Tensor) -> torch.Tensor:
+    """DTU-style world ray directions for target-view pixels
+    (`get_dtu_raydir`, multiview_pipeline.py:10-22): camera directions
+    ((x - cx) / fx, (y - cy) / fy, 1), normalised, rotated by the
+    camera-to-world rotation.
+
+    Args:
+      pixelcoords: (..., 2) (x, y) pixel coordinates.
+      intrinsic: (3, 3) or (4, 4) K.
+      rot_c2w: (3, 3), or (..., 3, 3) one per pixel (the JAX function
+        vmapped over the rays).
+
+    Returns:
+      (..., 3) unit world-space directions.
+    """
+    fx, fy = intrinsic[0, 0], intrinsic[1, 1]
+    cx, cy = intrinsic[0, 2], intrinsic[1, 2]
+    x = (pixelcoords[..., 0] - cx) / fx
+    y = (pixelcoords[..., 1] - cy) / fy
+    d = torch.stack([x, y, torch.ones_like(x)], dim=-1)
+    d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    return feinsum("...ij,...j->...i", rot_c2w, d)

@@ -1,4 +1,5 @@
-"""Weight bridge: a JAX `MVSDet` variable tree into the port's state_dict.
+"""Weight bridge: a JAX `MVSDet` or `NerfDetLegacy` variable tree into the
+port's state_dict.
 
 The port's submodules carry the JAX parameter tree's names, with flax's
 auto-named layers inside a conv block renamed (`Conv_0` and

@@ -452,7 +452,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
                                       generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
-    if isinstance(model, MVSDet):
+    if isinstance(getattr(model, "head", None), DetectionHead):
         with torch.no_grad():
             model.head.conv_cls.bias.fill_(-4.595)   # prior probability 0.01
 

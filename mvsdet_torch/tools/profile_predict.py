@@ -54,15 +54,20 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 CONFIGS = {"scannet": scannet_config, "arkit": arkit_config}
 
 
-def command_line(description: str):
-    """(config, its name, compute dtype) from the command line's
-    `--config` and `--dtype`."""
+def command_parser(description: str) -> argparse.ArgumentParser:
+    """The profilers' `--dtype` and `--config` options."""
     parser = argparse.ArgumentParser(description=description)
     parser.add_argument("--dtype", choices=sorted(DTYPES), default="float32",
                         help="the model's compute dtype")
     parser.add_argument("--config", choices=sorted(CONFIGS),
                         default="scannet", help="the model's preset")
-    args = parser.parse_args()
+    return parser
+
+
+def command_line(description: str):
+    """(config, its name, compute dtype) from the command line's
+    `--config` and `--dtype`."""
+    args = command_parser(description).parse_args()
     return CONFIGS[args.config](), args.config, DTYPES[args.dtype]
 
 

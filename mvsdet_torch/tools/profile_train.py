@@ -2,6 +2,7 @@
 
     python -m mvsdet_torch.tools.profile_train [--dtype bfloat16]
                                                [--config arkit]
+    python -m mvsdet_torch.tools.profile_train --model nerfdet
 
 Builds `scannet_config()` (or `arkit_config()`, with per-view intrinsics
 and the yaw head) at full width with seeded random weights and a
@@ -16,7 +17,9 @@ port's five kernels and the lift backward's index (K1's and K2's also by
 pass), and the kernels that took the most device time, summed by name.
 TF32 is off, as in the JAX package's float32 step.  `--dtype bfloat16`
 profiles the step computing in bf16 (parameters, gradients and AdamW
-state stay float32).
+state stay float32).  `--model nerfdet` profiles the legacy NeRF-Det's
+step (`nerfdet_train_step`: 2048 rays of 64 samples, float32, ScanNet's
+shared intrinsics) instead of MVSDet's.
 """
 
 from __future__ import annotations
@@ -29,9 +32,12 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from mvsdet_torch.data.prefetch import stage_batch
-from mvsdet_torch.tools.profile_predict import (TOP, _busy_us, command_line,
+from mvsdet_torch.tools.profile_predict import (CONFIGS, DTYPES, TOP,
+                                                _busy_us, command_parser,
                                                 synthetic_scene)
-from mvsdet_torch.training.loop import create_train_state, train_step
+from mvsdet_torch.training.loop import (create_nerfdet_state,
+                                        create_train_state,
+                                        nerfdet_train_step, train_step)
 
 # the port's kernels by the names nvcc gives their entry points: (kernel,
 # pass); K1 and K2 run two device kernels each
@@ -55,7 +61,14 @@ def _port_kernel(name: str):
 
 
 def main() -> None:
-    cfg, name, dtype = command_line(__doc__.split("\n")[0])
+    parser = command_parser(__doc__.split("\n")[0])
+    parser.add_argument("--model", choices=["mvsdet", "nerfdet"],
+                        default="mvsdet", help="the model family")
+    args = parser.parse_args()
+    cfg, name, dtype = CONFIGS[args.config](), args.config, DTYPES[args.dtype]
+    if args.model == "nerfdet" and (name, dtype) != ("scannet", torch.float32):
+        parser.error("--model nerfdet runs ScanNet's shared intrinsics in "
+                     "float32 only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card; no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -65,13 +78,18 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(json.dumps({"device": smi}), flush=True)
-    state = create_train_state(
-        cfg, generator=torch.Generator().manual_seed(cfg.seed), dtype=dtype)
+    generator = torch.Generator().manual_seed(cfg.seed)
+    if args.model == "nerfdet":
+        state, one_step = create_nerfdet_state(cfg, generator=generator), \
+            nerfdet_train_step
+    else:
+        state, one_step = create_train_state(cfg, generator=generator,
+                                             dtype=dtype), train_step
     batch = stage_batch(synthetic_scene(cfg, name, train=True), "cuda")
 
     def step() -> float:
         t0 = time.perf_counter()
-        float(train_step(state, batch)["loss"])
+        float(one_step(state, batch)["loss"])
         return (time.perf_counter() - t0) * 1e3
 
     warm = [step() for _ in range(3)]
@@ -101,7 +119,8 @@ def main() -> None:
     host_reads = sum(n for name, (_, n) in by_name.items()
                      if name.startswith("Memcpy DtoH"))
     print(json.dumps({
-        "config": name, "views": cfg.data.n_src_train, "dtype": str(dtype),
+        "model": args.model, "config": name, "views": cfg.data.n_src_train,
+        "dtype": str(dtype),
         "targets": cfg.data.nerf_target_views_train,
         "warmup_step_ms": warm, "latency_ms": latency_ms,
         "device_busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / latency_ms,

@@ -4,6 +4,8 @@
         --data-root data/scannet --work-dir work_dirs/mvsdet_torch
     python -m mvsdet_torch.tools.train --synthetic 8 --dtype bfloat16
     python -m mvsdet_torch.tools.train --tiny --synthetic 2 --steps 3 --device cpu
+    python -m mvsdet_torch.tools.train --model nerfdet --synthetic 8 \
+        --val-synthetic 2
     torchrun --standalone --nproc_per_node 4 -m mvsdet_torch.tools.train \
         --synthetic 8 --data-parallel 2 --view-parallel 2
 
@@ -29,8 +31,12 @@ and its last, checkpoint saves (`saved`, `save_s`) and evaluations
 (`backend`, `world`, `data_parallel`, `view_parallel`).  `--resume`
 continues at the checkpoint's step.
 
-Not accepted yet: `--model nerfdet` (legacy NeRF-Det), which waits for
-the port's NeRF-Det.
+`--model nerfdet` trains the legacy NeRF-Det instead
+(`create_nerfdet_state`, its step drawing the rays from `--seed` and the
+step number), on one device, in float32, and evaluates it as MVSDet.  It
+refuses `--data-parallel` or `--view-parallel` above 1, as the JAX
+launcher does (tools/train.py:137-141), and `--dtype bfloat16`, which the
+port's NeRF-Det does not compute yet.
 """
 
 from __future__ import annotations
@@ -53,7 +59,8 @@ from mvsdet_torch.data.synthetic import make_synthetic_scene
 from mvsdet_torch.evaluation.harness import evaluate_scenes, make_predict_fn
 from mvsdet_torch.models.mvsdet import DEPTH_SUPERVISION_SHARDED
 from mvsdet_torch.parallel import multihost
-from mvsdet_torch.training.loop import (TrainState, create_train_state, fit,
+from mvsdet_torch.training.loop import (TrainState, create_nerfdet_state,
+                                        create_train_state, fit,
                                         load_checkpoint,
                                         load_pretrained_backbone,
                                         save_checkpoint)
@@ -63,6 +70,10 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(description="Train MVSDet (PyTorch port)")
+    p.add_argument("--model", choices=["mvsdet", "nerfdet"], default="mvsdet",
+                   help="model family: the flagship MVSDet or the legacy "
+                        "NeRF-Det (the reference trains both, "
+                        "nerfdet/nerfdet.py:20 vs mvsdet.py:122)")
     p.add_argument("--infos", help="path to *_infos_train_new.pkl")
     p.add_argument("--data-root", default="", help="dataset root")
     p.add_argument("--work-dir", default="work_dirs/mvsdet_torch")
@@ -106,7 +117,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="'cuda' (the default; raises without a card; "
                         "under torchrun the card LOCAL_RANK names) or "
                         "'cpu'")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.model == "nerfdet":
+        if args.data_parallel * args.view_parallel > 1:
+            p.error("--model nerfdet trains on one device only, as the JAX "
+                    "launcher does (like the reference's per-GPU NerfDet); "
+                    "leave --data-parallel and --view-parallel at 1")
+        if args.dtype != "float32":
+            p.error("--model nerfdet computes in float32 only: its bf16 "
+                    "is not held against the JAX package's yet")
+    return args
 
 
 def configure(cfg: Config, args: argparse.Namespace) -> Config:
@@ -152,11 +172,17 @@ def train(cfg: Config, args: argparse.Namespace) -> TrainState:
     epochs = args.epochs or cfg.optim.max_epochs
     total_steps = args.steps or epochs * steps_per_epoch
 
-    state = create_train_state(
-        cfg, device=device,
-        generator=torch.Generator().manual_seed(args.seed),
-        steps_per_epoch=steps_per_epoch, sweep_chunk=args.sweep_chunk,
-        dtype=DTYPES[args.dtype])
+    if args.model == "nerfdet":
+        state = create_nerfdet_state(
+            cfg, device=device,
+            generator=torch.Generator().manual_seed(args.seed),
+            steps_per_epoch=steps_per_epoch, seed=args.seed)
+    else:
+        state = create_train_state(
+            cfg, device=device,
+            generator=torch.Generator().manual_seed(args.seed),
+            steps_per_epoch=steps_per_epoch, sweep_chunk=args.sweep_chunk,
+            dtype=DTYPES[args.dtype])
     if args.pretrained:
         load_pretrained_backbone(state, args.pretrained)
     if args.resume:

@@ -11,19 +11,28 @@ Checkpoints are `torch.save` files of the model, optimizer, scheduler and
 step; `create_predict_state` builds an eval model from one (the test
 launcher's), and `load_pretrained_backbone` swaps ImageNet weights into a
 train state's ResNet.
+
+`create_nerfdet_state` and `nerfdet_train_step` are the same for the
+legacy NeRF-Det (mvsdet_tpu/training/loop.py:70-130): the step draws its
+rays from a generator seeded with (seed, step), so that a resumed run
+draws at step k what an unbroken run draws there, as JAX's
+`fold_in(PRNGKey(seed), step)` makes it.  `fit`, the checkpoints and
+`load_pretrained_backbone` take either state.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, Optional, Union
 
 import torch
+from torch import nn
 
 from mvsdet_torch.config import Config
 from mvsdet_torch.data.prefetch import prefetch_iterator, stage_batch
 from mvsdet_torch.models.mvsdet import MVSDet, build_model, init_weights
+from mvsdet_torch.models.nerfdet import NerfDetLegacy
 from mvsdet_torch.models.resnet import (load_torchvision_checkpoint,
                                         port_torchvision_state_dict)
 from mvsdet_torch.parallel.mesh import Mesh
@@ -33,11 +42,22 @@ from mvsdet_torch.training.optim import apply_gradients, build_optimizer
 
 @dataclasses.dataclass
 class TrainState:
-    model: MVSDet
+    """The model, its optimizer and scheduler, the clip norm and the step
+    count; ``ray_seed``, NeRF-Det's alone, seeds its rays' draws."""
+    model: Union[MVSDet, NerfDetLegacy]
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LRScheduler
     max_norm: float
     step: int = 0
+    ray_seed: Optional[int] = None
+
+
+def _device_for(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the port runs on the "
+                           "card; pass device='cpu' to run it on the CPU")
+    return device
 
 
 def create_train_state(cfg: Config, device="cuda",
@@ -57,19 +77,52 @@ def create_train_state(cfg: Config, device="cuda",
     Runs on the card unless the caller asks for the CPU; raises when CUDA
     is missing and ``device="cpu"`` was not asked for.
     """
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: the port runs on the "
-                           "card; pass device='cpu' to run it on the CPU")
+    device = _device_for(device)
     model = MVSDet(cfg.model, sweep_chunk=sweep_chunk,
                    sweep_remat=sweep_remat, dtype=dtype)
+    return _train_state(cfg, model, device, generator, steps_per_epoch)
+
+
+def _train_state(cfg: Config, model: nn.Module, device: torch.device,
+                 generator: Optional[torch.Generator], steps_per_epoch: int,
+                 ray_seed: Optional[int] = None) -> TrainState:
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)
     model.to(device).train()
     optimizer, scheduler = build_optimizer(cfg.optim, model, steps_per_epoch)
     return TrainState(model, optimizer, scheduler,
-                      max_norm=cfg.optim.grad_clip_norm)
+                      max_norm=cfg.optim.grad_clip_norm, ray_seed=ray_seed)
+
+
+def create_nerfdet_state(cfg: Config, device="cuda",
+                         generator: Optional[torch.Generator] = None,
+                         steps_per_epoch: int = 1000,
+                         seed: Optional[int] = None,
+                         **model_fields) -> TrainState:
+    """A legacy NeRF-Det in train mode (mvsdet_tpu/training/loop.py:70-98)
+    with random weights from ``generator`` (default: seeded with
+    ``cfg.seed``) on ``device``, the AdamW, clip and MultiStepLR of
+    `create_train_state`, at step 0.  ``seed`` (default ``cfg.seed``)
+    seeds the step's ray draws; ``model_fields`` are `NerfDetLegacy`'s
+    (``n_samples``, ``n_rand``, ...).  NeRF-Det computes in float32 (its
+    bf16 is ROADMAP M16b).
+
+    Runs on the card unless the caller asks for the CPU; raises when CUDA
+    is missing and ``device="cpu"`` was not asked for.
+    """
+    device = _device_for(device)
+    model = NerfDetLegacy(cfg.model, **model_fields)
+    return _train_state(cfg, model, device, generator, steps_per_epoch,
+                        ray_seed=cfg.seed if seed is None else seed)
+
+
+def ray_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of NeRF-Det's ray draws at ``step``: seeded with
+    ``seed`` in the high bits and the step in the low 32, on ``device``
+    (the counterpart of `fold_in(PRNGKey(seed), step)`,
+    mvsdet_tpu/training/loop.py:109)."""
+    return torch.Generator(device=device).manual_seed((seed << 32) + step)
 
 
 def train_step(state: TrainState,
@@ -84,15 +137,38 @@ def train_step(state: TrainState,
     return {"loss": total.detach(), **{k: v.detach() for k, v in aux.items()}}
 
 
+def nerfdet_train_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """One NeRF-Det optimisation step (mvsdet_tpu/training/loop.py:
+    101-129): its loss with the rays drawn from `ray_generator` at this
+    step, backward, then the update of `train_step`.  Updates ``state`` in
+    place and returns the metrics as device tensors."""
+    device = next(state.model.parameters()).device
+    state.optimizer.zero_grad(set_to_none=True)
+    total, aux = state.model.loss(
+        batch, generator=ray_generator(state.ray_seed, state.step, device))
+    total.backward()
+    apply_gradients(state)
+    return {"loss": total.detach(), **{k: v.detach() for k, v in aux.items()}}
+
+
+def step_fn(state: TrainState) -> Callable:
+    """The unsharded step of ``state``'s model: `nerfdet_train_step` for
+    NeRF-Det, `train_step` for MVSDet."""
+    step = nerfdet_train_step if state.ray_seed is not None else train_step
+    return functools.partial(step, state)
+
+
 def make_train_step(state: TrainState) -> Callable:
     """step(batch) -> metrics, for a batch of host arrays or tensors,
     staged on the model's device first."""
     device = next(state.model.parameters()).device
+    step = step_fn(state)
 
-    def step(batch) -> Dict[str, torch.Tensor]:
-        return train_step(state, stage_batch(batch, device))
+    def staged_step(batch) -> Dict[str, torch.Tensor]:
+        return step(stage_batch(batch, device))
 
-    return step
+    return staged_step
 
 
 def fit(state: TrainState, batches: Iterable[Dict], num_steps: int,
@@ -101,18 +177,22 @@ def fit(state: TrainState, batches: Iterable[Dict], num_steps: int,
         checkpoint_path: Optional[str] = None,
         checkpoint_every: Optional[int] = None,
         mesh: Optional[Mesh] = None) -> TrainState:
-    """Step-driven training loop.  The next batch is staged on the device
-    by a background thread while the card runs the current step; the host
-    reads the metrics only on the steps it logs.
+    """Step-driven training loop over `step_fn`'s step (NeRF-Det's or
+    MVSDet's).  The next batch is staged on the device by a background
+    thread while the card runs the current step; the host reads the
+    metrics only on the steps it logs.
 
-    With ``mesh``, ``batches`` are this rank's data row's scenes, each
-    step is the sharded step (`make_sharded_train_step`), the thread
-    stages only this rank's view slice of each (`shard_batch`), and rank 0
+    With ``mesh`` (MVSDet only), ``batches`` are this rank's data row's
+    scenes, each step is the sharded step (`make_sharded_train_step`), the
+    thread stages only this rank's view slice of each (`shard_batch`), and rank 0
     alone writes the checkpoints (every rank holds the same state).
     """
     device = next(state.model.parameters()).device
     if mesh is None:
-        step = functools.partial(train_step, state)
+        step = step_fn(state)
+    elif state.ray_seed is not None:
+        raise ValueError("NeRF-Det trains on one device only, as the JAX "
+                         "launcher does (tools/train.py:137-141)")
     else:
         step = make_sharded_train_step(state, mesh)
         batches = (shard_batch(b, mesh) for b in batches)

@@ -22,12 +22,14 @@ from mvsdet_tpu.config import tiny_test_config
 from mvsdet_tpu.data.synthetic import make_synthetic_scene
 from mvsdet_tpu.models import layers as jx_layers
 from mvsdet_tpu.models.mvsdet import MVSDet as JxMVSDet
+from mvsdet_tpu.models.nerfdet import NerfDetLegacy as JxNerfDetLegacy
 
 from mvsdet_torch import config as port_config
 from mvsdet_torch.evaluation.harness import make_predict_fn
 from mvsdet_torch.interop import flax_to_state_dict, load_flax_variables
 from mvsdet_torch.models import layers
 from mvsdet_torch.models.mvsdet import MVSDet, build_model
+from mvsdet_torch.models.nerfdet import NerfDetLegacy
 
 REPO = Path(__file__).resolve().parents[1]
 # the real-format data path, the metrics and the launchers: imported by the
@@ -41,6 +43,11 @@ M13_MODULES = (
 M15_MODULES = (
     "mvsdet_torch.parallel.mesh", "mvsdet_torch.parallel.collectives",
     "mvsdet_torch.parallel.sharding", "mvsdet_torch.parallel.multihost")
+# the legacy NeRF-Det, named for the same reason
+M16_MODULES = (
+    "mvsdet_torch.models.nerfdet", "mvsdet_torch.models.nerf_mlp",
+    "mvsdet_torch.ops.ray_render", "mvsdet_torch.training.loop")
+NAMED_MODULES = M13_MODULES + M15_MODULES + M16_MODULES
 
 
 def _leaf(path, shape, rng):
@@ -96,6 +103,34 @@ class TestBridge:
         assert len(arrays) == n_leaves == len(port_keys)
         for key, value in arrays.items():
             np.testing.assert_array_equal(state[key].numpy(), value)
+
+    def test_maps_every_nerfdet_leaf_with_nothing_left_over(self):
+        """A `NerfDetLegacy` tree: the backbone, FPN, neck (with its
+        BatchNorm statistics), head, `mapping` and the NeRF MLP."""
+        cfg = narrow(tiny_test_config())
+        batch = {k: jnp.asarray(v) for k, v in make_synthetic_scene(
+            cfg, seed=0, n_views=3, n_targets=2).items()}
+        tree = random_variables(JxNerfDetLegacy(cfg.model, n_rand=8,
+                                                n_samples=4),
+                                batch, method=JxNerfDetLegacy.loss)
+        model = NerfDetLegacy(narrow(port_config.tiny_test_config()).model)
+        load_flax_variables(model, tree)
+        arrays = flax_to_state_dict(tree)
+        state = model.state_dict()
+        port_keys = [k for k in state if not k.endswith("num_batches_tracked")]
+        assert len(arrays) == len(jax.tree_util.tree_leaves(tree)) \
+            == len(port_keys)
+        for key, value in arrays.items():
+            np.testing.assert_array_equal(state[key].numpy(), value)
+        for name in ("mapping.weight", "nerf_mlp.base.hidden3.weight",
+                     "nerf_mlp.sigma.bias", "nerf_mlp.bottleneck.weight",
+                     "nerf_mlp.rgb.hidden0.weight", "nerf_mlp.rgb.output.bias",
+                     "neck3d.out0.norm.running_var",
+                     "backbone.stem_bn.running_mean", "head.scales"):
+            assert name in arrays, name
+        np.testing.assert_array_equal(
+            arrays["nerf_mlp.rgb.output.weight"],
+            tree["params"]["nerf_mlp"]["rgb"]["output"]["kernel"].T)
 
     def test_conversions(self, tiny_tree):
         arrays = flax_to_state_dict(tiny_tree)
@@ -209,7 +244,7 @@ class TestEntryPoints:
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'mvsdet_tpu')]\n"
             "assert not bad, bad\n"
-            f"missing = [m for m in {M13_MODULES + M15_MODULES!r} "
+            f"missing = [m for m in {NAMED_MODULES!r} "
             "if m not in sys.modules]\n"
             "assert not missing, missing\n")
         env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO),
@@ -232,4 +267,4 @@ class TestEntryPoints:
         assert len(sources) > 20 and not bad, bad
         scanned = {str(p.relative_to(REPO).with_suffix("")).replace("/", ".")
                    for p in sources}
-        assert set(M13_MODULES + M15_MODULES) <= scanned
+        assert set(NAMED_MODULES) <= scanned

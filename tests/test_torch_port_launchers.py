@@ -15,6 +15,8 @@ launchers on the CPU, held against the JAX package.
   (gloo): `train` writes one log and one checkpoint, from rank 0, and its
   ranks end with equal parameters (bit for bit, also equal to that
   checkpoint's); `test` prints the metric dict of one process.
+- `train --model nerfdet`: its steps, evaluations and checkpoints, and
+  a resumed run drawing the rays of an unbroken one.
 - The launchers run on the card unless `--device cpu` is given, and
   refuse the options that wait for later parts of the port.
 """
@@ -48,7 +50,8 @@ from mvsdet_torch.interop import load_flax_variables
 from mvsdet_torch.models.mvsdet import MVSDet
 from mvsdet_torch.tools import test as test_launcher
 from mvsdet_torch.tools import train as train_launcher
-from mvsdet_torch.training.loop import (create_predict_state,
+from mvsdet_torch.training.loop import (create_nerfdet_state,
+                                        create_predict_state,
                                         create_train_state,
                                         load_pretrained_backbone)
 
@@ -197,6 +200,68 @@ def test_train_launcher_on_the_fixture(fixture_infos, tmp_path):
     assert [r["step"] for r in resumed] == [3] and state.step == 4
 
 
+def nerfdet_args(work, *flags):
+    return train_launcher.parse_args(
+        ["--model", "nerfdet", "--tiny", "--synthetic", "1", "--device", "cpu",
+         "--work-dir", str(work), "--log-every", "1", *flags])
+
+
+def test_train_launcher_nerfdet(tmp_path):
+    """`--model nerfdet --tiny --synthetic 1 --steps 2 --val-synthetic 1
+    --device cpu` (narrow widths, the ResNet frozen): two steps with every
+    NeRF-Det loss term, an evaluation after each (an epoch is one scene),
+    `latest` and `best`."""
+    cfg = frozen_backbone(narrow(tiny_test_config()))
+    state = train_launcher.train(cfg, nerfdet_args(
+        tmp_path, "--steps", "2", "--val-synthetic", "1"))
+    log = records(tmp_path)
+    steps = [r for r in log if "loss" in r]
+    assert [r["step"] for r in steps] == [0, 1]
+    for r in steps:
+        assert {"cls_loss", "loss_nvs", "loss_depth", "n_pos"} <= set(r)
+        assert all(np.isfinite(v) for v in r.values())
+        assert r["loss_nvs"] > 0
+    evals = [r["eval"] for r in log if "eval" in r]
+    assert len(evals) == 2 and all("mAP_0.25" in e and "predict_s_first" in e
+                                   for e in evals)
+    assert "psnr" not in evals[0]          # NeRF-Det renders no view
+    assert [r["saved"] for r in log if "saved" in r][:2] == ["latest", "best"]
+    assert sorted(os.listdir(tmp_path)) == ["best", "latest",
+                                            "train_log.jsonl"]
+    assert type(state.model).__name__ == "NerfDetLegacy" and state.step == 2
+
+
+def test_train_launcher_nerfdet_resume_draws_as_unbroken(tmp_path,
+                                                          monkeypatch):
+    """A run resumed from `latest` at step 1 draws the rays an unbroken run
+    draws at steps 1 and 2, and ends with the same losses."""
+    from mvsdet_torch.models.nerfdet import NerfDetLegacy
+
+    cfg = frozen_backbone(narrow(tiny_test_config()))
+    drawn = []
+    draw = NerfDetLegacy.draw_rays
+    monkeypatch.setattr(NerfDetLegacy, "draw_rays",
+                        lambda self, batch, g: drawn.append(
+                            draw(self, batch, g)) or drawn[-1])
+    train_launcher.train(cfg, nerfdet_args(tmp_path / "whole", "--steps", "3"))
+    whole, drawn[:] = list(drawn), []
+    train_launcher.train(cfg, nerfdet_args(tmp_path / "cut", "--steps", "1"))
+    train_launcher.train(cfg, nerfdet_args(
+        tmp_path / "cut", "--steps", "3", "--resume",
+        str(tmp_path / "cut" / "latest")))
+    assert len(whole) == len(drawn) == 3
+    for a, b in zip(whole, drawn):
+        for key in ("ts", "ys", "xs", "t"):
+            assert torch.equal(a[key], b[key]), key
+    assert not torch.equal(whole[1]["t"], whole[2]["t"])
+    losses = [[r for r in records(tmp_path / run) if "loss" in r]
+              for run in ("whole", "cut")]
+    assert [r["step"] for r in losses[1]] == [0, 1, 2]
+    for a, b in zip(losses[0], losses[1]):
+        assert {k: v for k, v in a.items() if k != "time"} \
+            == {k: v for k, v in b.items() if k != "time"}
+
+
 def torchvision_state_dict(seed=0):
     """Random weights under torchvision's resnet50 names and shapes (its
     classifier included), written out here, not taken from the port."""
@@ -275,6 +340,22 @@ def test_pretrained_backbone_matches_jax(backbone_case, train_state,
         assert err <= 1e-5, f"stage {i}: {err}"
 
 
+def test_pretrained_backbone_loads_into_nerfdet(tmp_path):
+    """`--pretrained` with `--model nerfdet`: the same loader fills a
+    NeRF-Det state's ResNet and leaves the rest, `mapping` included."""
+    sd = torchvision_state_dict(seed=2)
+    path = str(tmp_path / "resnet50.pth")
+    torch.save(sd, path)
+    state = create_nerfdet_state(narrow(tiny_test_config()), device="cpu")
+    mapping = state.model.mapping.weight.detach().clone()
+    assert load_pretrained_backbone(state, path) is state
+    assert torch.equal(state.model.backbone.stem_conv.weight,
+                       sd["conv1.weight"])
+    assert torch.equal(state.model.backbone.layer4_block2.bn3.running_var,
+                       sd["layer4.2.bn3.running_var"])
+    assert torch.equal(state.model.mapping.weight, mapping)
+
+
 @pytest.mark.parametrize("change", ["shape", "missing"])
 def test_pretrained_backbone_mismatch_raises(train_state, tmp_path, change):
     sd = torchvision_state_dict(seed=1)
@@ -304,7 +385,8 @@ def test_launchers_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("launcher,flags", [
-    (train_launcher, ["--model", "nerfdet"]),
+    (train_launcher, ["--model", "nerfdet", "--dtype", "bfloat16"]),
+    (train_launcher, ["--model", "nerfdet", "--data-parallel", "2"]),
     (test_launcher, ["--diagnostics"]),
     (test_launcher, ["--vis-dir", "out"])])
 def test_launchers_refuse_what_waits_for_later_slices(launcher, flags):
