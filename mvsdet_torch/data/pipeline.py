@@ -10,6 +10,11 @@ multiview_pipeline.py:317-612):
   * fixed-shape numpy batches; staging to the card is `data/prefetch.py`'s
     and `evaluation/harness.py`'s.
 
+`ScenePipeline` draws a batch's random choices (`sample`) apart from the
+decoding (`load`), so that `scene_iterator` can advance the seeded stream
+past scenes it does not decode: a resumed run, or one data row of
+several, takes its own positions of the one stream.
+
 The images are resized *exactly* to the static target (240x320) with
 anisotropic intrinsic scaling (fx by the width ratio, fy by the height
 ratio), where the reference resizes keep-ratio and pads: geometry stays
@@ -140,6 +145,16 @@ def _scale_k_xy(k: np.ndarray, sx: float, sy: float) -> np.ndarray:
 
 
 @dataclasses.dataclass
+class ScenePlan:
+    """What `ScenePipeline.sample` draws for one batch: the source and
+    target view ids and the (shifted) volume origin."""
+
+    src: np.ndarray
+    tgt: np.ndarray
+    origin: np.ndarray
+
+
+@dataclasses.dataclass
 class ScenePipeline:
     """Builds one fixed-shape model batch from a SceneInfo."""
 
@@ -154,11 +169,12 @@ class ScenePipeline:
         if self.image_loader is None:
             self.image_loader = default_image_loader()
 
-    def __call__(self, scene: SceneInfo,
-                 rng: np.random.RandomState) -> Dict[str, np.ndarray]:
-        cfg, mc, dc = self.cfg, self.cfg.model, self.cfg.data
-        h, w = mc.image_size
-        ht, wt = mc.target_size
+    def sample(self, scene: SceneInfo,
+               rng: np.random.RandomState) -> ScenePlan:
+        """The random draws of one batch, in `__call__`'s order: the view
+        sampler's, the padding of the source views to the static count,
+        and (training) the origin shift.  Decodes nothing."""
+        dc = self.cfg.data
         n_images = dc.n_views_train if self.training else dc.n_views_test
         n_targets = (dc.nerf_target_views_train if self.training
                      else dc.nerf_target_views_test)
@@ -183,6 +199,19 @@ class ScenePipeline:
             src = np.concatenate([src, extra])
         src = src[:n_src]
 
+        origin = np.asarray(dc.origin, np.float32).copy()
+        if self.training:
+            # RandomShiftOrigin (multiview_pipeline.py:843-852)
+            origin += rng.randn(3).astype(np.float32) * np.asarray(
+                dc.shift_std, np.float32)
+        return ScenePlan(src=src, tgt=tgt, origin=origin)
+
+    def load(self, scene: SceneInfo, plan: ScenePlan) -> Dict[str, np.ndarray]:
+        """Decode the views ``plan`` names and assemble the batch."""
+        mc = self.cfg.model
+        h, w = mc.image_size
+        ht, wt = mc.target_size
+        src, tgt = plan.src, plan.tgt
         load, load_depth = self.image_loader, cv2_load_depth
 
         imgs, denorms, depths = [], [], []
@@ -210,12 +239,6 @@ class ScenePipeline:
             k_img = k_img[src]
             k_tgt = k_tgt[tgt]
 
-        origin = np.asarray(dc.origin, np.float32).copy()
-        if self.training:
-            # RandomShiftOrigin (multiview_pipeline.py:843-852)
-            origin += rng.randn(3).astype(np.float32) * np.asarray(
-                dc.shift_std, np.float32)
-
         max_b = mc.head.max_boxes
         nb = min(len(scene.gt_boxes), max_b)
         box_dim = 7 if mc.head.with_yaw else 6   # ARKit carries yaw
@@ -232,7 +255,7 @@ class ScenePipeline:
             denorm_images=np.stack(denorms),
             w2c=scene.w2c[src],
             intrinsic=k_img.astype(np.float32),
-            origin=origin,
+            origin=plan.origin.copy(),
             tgt_c2w=scene.c2w[tgt],
             tgt_intrinsic=k_tgt.astype(np.float32),
             gt_images=np.stack(gt_imgs),
@@ -248,22 +271,38 @@ class ScenePipeline:
                 [load_depth(scene.depth_paths[i], (ht, wt)) for i in tgt])
         return batch
 
+    def __call__(self, scene: SceneInfo,
+                 rng: np.random.RandomState) -> Dict[str, np.ndarray]:
+        """One batch: `sample`'s draws from ``rng``, then `load`."""
+        return self.load(scene, self.sample(scene, rng))
+
 
 def scene_iterator(scenes: Sequence[SceneInfo], pipeline: ScenePipeline,
-                   seed: int = 0, repeat: int = 1, shuffle: bool = True):
-    """Endless (train) or single-pass (eval) batch generator.
+                   seed: int = 0, repeat: int = 1, shuffle: bool = True,
+                   start: int = 0, stride: int = 1):
+    """Endless (train, ``repeat=0``) or ``repeat``-pass (eval) batch
+    generator over one seeded stream.
 
     Mirrors RepeatDataset x6 + DefaultSampler shuffle (config
-    mvsdet_res50_2x_low_res.py:128-145).
+    mvsdet_res50_2x_low_res.py:128-145).  Yields the batches at stream
+    positions ``start``, ``start + stride``, ...: every position draws its
+    scene order and its view samples from the one rng, but only the
+    positions yielded are decoded.  A run resumed at step k of data row d
+    (of D) takes ``start = k * D + d, stride = D`` and sees what an
+    unbroken run sees there.
     """
     rng = np.random.RandomState(seed)
     epoch = 0
+    position = 0
     while True:
         order = np.arange(len(scenes))
         if shuffle:
             rng.shuffle(order)
         for idx in order:
-            yield pipeline(scenes[idx], rng)
+            plan = pipeline.sample(scenes[idx], rng)
+            if position >= start and (position - start) % stride == 0:
+                yield pipeline.load(scenes[idx], plan)
+            position += 1
         epoch += 1
         if repeat and epoch >= repeat:
             return

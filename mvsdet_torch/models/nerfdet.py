@@ -19,8 +19,14 @@ The branch's random draws (the rays' targets and pixels, the samples'
 offsets in their strata) come from a `torch.Generator` or are handed in
 as `rays` (`draw_rays`'s dict); the JAX module draws them from its 'rays'
 PRNG key.  NeRF-Det takes one intrinsic shared by the views and one by
-the targets (4, 4), as the JAX module does, and computes in float32.
-Public tensors keep the JAX package's channels-last layout.
+the targets (4, 4), as the JAX module does.  ``dtype`` is the JAX
+module's compute dtype (float32 or bfloat16): the backbone, FPN, neck,
+head, NeRF MLP and `mapping` compute in it, while the features that the
+lift and the NeRF branch sample (`feats32`), the volumes and their
+pooling stay float32, as in the JAX module; where a bf16 output meets a
+float32 one (the sampled mapped features, the RGB and mapped volumes,
+alpha times the mean volume, the rendered depth) both packages promote
+to float32.  Public tensors keep the JAX package's channels-last layout.
 
 No part of NeRF-Det runs a CUDA kernel of `ops/csrc`: its lift is a
 nearest-pixel gather, its branch gathers, elementwise passes and small
@@ -132,18 +138,24 @@ class NerfDetLegacy(nn.Module):
     (nerfdet.py:89-90), the mapped features C / ``squeeze_scale`` wide
     (:96), the density-scaled volume (``nerf_density``), the ray mask on
     the colour loss (``use_nerf_mask``) and the depth L1
-    (``depth_supervision``).
+    (``depth_supervision``), and the networks' compute ``dtype`` (float32
+    or bfloat16).
     """
 
     def __init__(self, cfg: ModelConfig, n_samples: int = 64,
                  n_rand: int = 2048, squeeze_scale: int = 4,
                  nerf_density: bool = True, use_nerf_mask: bool = True,
-                 depth_supervision: bool = True):
+                 depth_supervision: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.head.with_yaw:
             raise ValueError("NeRF-Det has the axis-aligned head only, as "
                              "the JAX module does")
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"compute dtype float32 or bfloat16, not "
+                             f"{dtype}")
         self.cfg = cfg
+        self.dtype = dtype
         self.n_samples = n_samples
         self.n_rand = n_rand
         self.nerf_density = nerf_density
@@ -152,18 +164,22 @@ class NerfDetLegacy(nn.Module):
         c = cfg.backbone.fpn_out_channels
         self.nerf_feature_dim = c // squeeze_scale
         self.backbone = ResNet50(depth=cfg.backbone.depth,
-                                 frozen_stages=cfg.backbone.frozen_stages)
-        self.fpn = FPN(out_channels=c)
+                                 frozen_stages=cfg.backbone.frozen_stages,
+                                 dtype=dtype)
+        self.fpn = FPN(out_channels=c, dtype=dtype)
         self.neck3d = IndoorImVoxelNeck(in_channels=c,
-                                        out_channels=cfg.neck3d_out_channels)
+                                        out_channels=cfg.neck3d_out_channels,
+                                        dtype=dtype)
         self.head = DetectionHead(cfg.head,
-                                  in_channels=cfg.neck3d_out_channels)
+                                  in_channels=cfg.neck3d_out_channels,
+                                  dtype=dtype)
         # feature_dim = nerf_feature_dim + 6 == 2 * (dim / 2 + 3): the
         # mapped features and the rgb, their mean and exp(-var) halves
         # (nerfdet.py:101)
         self.nerf_mlp = VanillaNeRF(net_depth=4, net_width=256, skip_layer=3,
-                                    feature_dim=self.nerf_feature_dim + 6)
-        self.mapping = Linear(c, self.nerf_feature_dim // 2)
+                                    feature_dim=self.nerf_feature_dim + 6,
+                                    dtype=dtype)
+        self.mapping = Linear(c, self.nerf_feature_dim // 2, dtype=dtype)
 
     # -- the rays' draws ---------------------------------------------------
 
@@ -190,9 +206,12 @@ class NerfDetLegacy(nn.Module):
     # -- feature extraction ------------------------------------------------
 
     def image_features(self, images: torch.Tensor) -> torch.Tensor:
-        """(N, H, W, 3) images -> (N, h, w, C) FPN level 0, channels-last."""
-        feats = self.backbone(images.permute(0, 3, 1, 2).contiguous())
-        return self.fpn(feats)[0].permute(0, 2, 3, 1).contiguous()
+        """(N, H, W, 3) images -> (N, h, w, C) FPN level 0, channels-last,
+        computed in the compute dtype and returned in float32 (`feats32`,
+        mvsdet_tpu/models/nerfdet.py:135-138)."""
+        x = images.to(self.dtype).permute(0, 3, 1, 2).contiguous()
+        feats = self.fpn(self.backbone(x))[0]
+        return feats.permute(0, 2, 3, 1).to(torch.float32).contiguous()
 
     def extract_feat(self, batch: Dict[str, torch.Tensor], train: bool = False,
                      rays: Union[None, torch.Generator, Dict] = None) -> Dict:
@@ -233,7 +252,8 @@ class NerfDetLegacy(nn.Module):
             volume = torch.where(cnt[:, None] > 0, alpha[:, None] * mean, 0.0)
 
         nx, ny, nz = mc.n_voxels
-        volume = volume.reshape(nx, ny, nz, c).permute(3, 0, 1, 2)[None]
+        volume = volume.to(self.dtype).reshape(nx, ny, nz, c) \
+            .permute(3, 0, 1, 2)[None]
         levels = self.neck3d(volume.contiguous(), train)
         return dict(levels=levels, valid_count=cnt.reshape(nx, ny, nz),
                     render=render)

@@ -3,6 +3,7 @@
     python -m mvsdet_torch.tools.profile_train [--dtype bfloat16]
                                                [--config arkit]
     python -m mvsdet_torch.tools.profile_train --model nerfdet
+                                               [--dtype bfloat16]
 
 Builds `scannet_config()` (or `arkit_config()`, with per-view intrinsics
 and the yaw head) at full width with seeded random weights and a
@@ -18,8 +19,8 @@ pass), and the kernels that took the most device time, summed by name.
 TF32 is off, as in the JAX package's float32 step.  `--dtype bfloat16`
 profiles the step computing in bf16 (parameters, gradients and AdamW
 state stay float32).  `--model nerfdet` profiles the legacy NeRF-Det's
-step (`nerfdet_train_step`: 2048 rays of 64 samples, float32, ScanNet's
-shared intrinsics) instead of MVSDet's.
+step (`nerfdet_train_step`: 2048 rays of 64 samples, ScanNet's shared
+intrinsics, in `--dtype`) instead of MVSDet's.
 """
 
 from __future__ import annotations
@@ -66,9 +67,9 @@ def main() -> None:
                         default="mvsdet", help="the model family")
     args = parser.parse_args()
     cfg, name, dtype = CONFIGS[args.config](), args.config, DTYPES[args.dtype]
-    if args.model == "nerfdet" and (name, dtype) != ("scannet", torch.float32):
-        parser.error("--model nerfdet runs ScanNet's shared intrinsics in "
-                     "float32 only")
+    if args.model == "nerfdet" and name != "scannet":
+        parser.error("--model nerfdet runs ScanNet's shared intrinsics "
+                     "only")
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card; no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -80,7 +81,8 @@ def main() -> None:
     print(json.dumps({"device": smi}), flush=True)
     generator = torch.Generator().manual_seed(cfg.seed)
     if args.model == "nerfdet":
-        state, one_step = create_nerfdet_state(cfg, generator=generator), \
+        state, one_step = create_nerfdet_state(cfg, generator=generator,
+                                               dtype=dtype), \
             nerfdet_train_step
     else:
         state, one_step = create_train_state(cfg, generator=generator,

@@ -22,21 +22,22 @@ it at a barrier.  An epoch is still `steps_per_epoch` steps, as the JAX
 launcher counts it (tools/train.py:129).  Each epoch ends with a save of
 `latest` and, with `--val-infos` or `--val-synthetic`, an evaluation whose
 best `mAP_0.25` is kept as `best` (the reference's val_cfg + CheckpointHook
-save_best, mvsdet_res50_2x_low_res.py:164-172).  Every record goes to
-`<work-dir>/train_log.jsonl`: step records (`step`, `time` in seconds
-since the first step began, read after the step's losses reach the
-host, and the loss terms) for every `--log-every`-th step of an epoch
+save_best, mvsdet_res50_2x_low_res.py:164-172); a resumed run reads the
+best so far back from the work dir's log, a fresh run starts its own.
+Every record goes to `<work-dir>/train_log.jsonl`: step records (`step`,
+`time` in seconds since the first step began, read after the step's
+losses reach the host, and the loss terms) for every `--log-every`-th step of an epoch
 and its last, checkpoint saves (`saved`, `save_s`) and evaluations
 (`eval`, the metric dict), after a first record of the layout
 (`backend`, `world`, `data_parallel`, `view_parallel`).  `--resume`
-continues at the checkpoint's step.
+continues at the checkpoint's step and at that step's place in the
+seeded scene stream.
 
 `--model nerfdet` trains the legacy NeRF-Det instead
 (`create_nerfdet_state`, its step drawing the rays from `--seed` and the
-step number), on one device, in float32, and evaluates it as MVSDet.  It
-refuses `--data-parallel` or `--view-parallel` above 1, as the JAX
-launcher does (tools/train.py:137-141), and `--dtype bfloat16`, which the
-port's NeRF-Det does not compute yet.
+step number), on one device, in `--dtype`, and evaluates it as MVSDet.
+It refuses `--data-parallel` or `--view-parallel` above 1, as the JAX
+launcher does (tools/train.py:137-141).
 """
 
 from __future__ import annotations
@@ -123,9 +124,6 @@ def parse_args(argv=None) -> argparse.Namespace:
             p.error("--model nerfdet trains on one device only, as the JAX "
                     "launcher does (like the reference's per-GPU NerfDet); "
                     "leave --data-parallel and --view-parallel at 1")
-        if args.dtype != "float32":
-            p.error("--model nerfdet computes in float32 only: its bf16 "
-                    "is not held against the JAX package's yet")
     return args
 
 
@@ -139,6 +137,16 @@ def configure(cfg: Config, args: argparse.Namespace) -> Config:
             cfg, data=dataclasses.replace(cfg.data,
                                           n_views_train=args.n_views))
     return cfg
+
+
+def best_logged_map(log_path: str) -> float:
+    """The highest mAP_0.25 of the evaluations in a `train_log.jsonl`, the
+    one `best` was saved at; -1 where there is no log or no evaluation."""
+    if not os.path.exists(log_path):
+        return -1.0
+    with open(log_path) as f:
+        evals = [rec["eval"] for rec in map(json.loads, f) if "eval" in rec]
+    return max((e.get("mAP_0.25", 0.0) for e in evals), default=-1.0)
 
 
 def train(cfg: Config, args: argparse.Namespace) -> TrainState:
@@ -176,7 +184,8 @@ def train(cfg: Config, args: argparse.Namespace) -> TrainState:
         state = create_nerfdet_state(
             cfg, device=device,
             generator=torch.Generator().manual_seed(args.seed),
-            steps_per_epoch=steps_per_epoch, seed=args.seed)
+            steps_per_epoch=steps_per_epoch, seed=args.seed,
+            dtype=DTYPES[args.dtype])
     else:
         state = create_train_state(
             cfg, device=device,
@@ -188,14 +197,16 @@ def train(cfg: Config, args: argparse.Namespace) -> TrainState:
     if args.resume:
         load_checkpoint(args.resume, state)
 
-    # step k of data row d: scene k * D + d of the one seeded stream
+    # step k of data row d: scene k * D + d of the one seeded stream, from
+    # the checkpoint's step on; the real-data stream draws the positions
+    # before it and the other rows' without decoding them
     if args.synthetic:
         batches = (scenes[(i * n_dp + row) % len(scenes)]
                    for i in itertools.count(state.step))
     else:
-        batches = itertools.islice(
-            scene_iterator(infos, ScenePipeline(cfg, training=True),
-                           seed=args.seed, repeat=0), row, None, n_dp)
+        batches = scene_iterator(infos, ScenePipeline(cfg, training=True),
+                                 seed=args.seed, repeat=0,
+                                 start=state.step * n_dp + row, stride=n_dp)
 
     val_scenes = None
     if args.val_synthetic:
@@ -218,9 +229,10 @@ def train(cfg: Config, args: argparse.Namespace) -> TrainState:
 
     do_eval = lead and bool(args.val_synthetic or args.val_infos)
     predict = make_predict_fn(state.model, device) if do_eval else None
-    best_map = -1.0
-
     log_path = os.path.join(args.work_dir, "train_log.jsonl")
+    # a resumed run replaces `best` only with a higher mAP_0.25 than the
+    # work dir's log records; a fresh run keeps its own best, as JAX's does
+    best_map = best_logged_map(log_path) if args.resume else -1.0
 
     def log(rec):
         print(json.dumps(rec), flush=True)

@@ -31,6 +31,7 @@ from torch import nn
 
 from mvsdet_torch.config import Config
 from mvsdet_torch.data.prefetch import prefetch_iterator, stage_batch
+from mvsdet_torch.models import flax_init
 from mvsdet_torch.models.mvsdet import MVSDet, build_model, init_weights
 from mvsdet_torch.models.nerfdet import NerfDetLegacy
 from mvsdet_torch.models.resnet import (load_torchvision_checkpoint,
@@ -64,10 +65,13 @@ def create_train_state(cfg: Config, device="cuda",
                        generator: Optional[torch.Generator] = None,
                        steps_per_epoch: int = 1000, sweep_chunk: int = 8,
                        sweep_remat: bool = True,
-                       dtype: torch.dtype = torch.float32) -> TrainState:
+                       dtype: torch.dtype = torch.float32,
+                       flax_seed: Optional[int] = None) -> TrainState:
     """A model in train mode with random weights from ``generator``
     (default: seeded with ``cfg.seed``) on ``device``, its AdamW optimizer
-    and MultiStepLR scheduler, at step 0.
+    and MultiStepLR scheduler, at step 0.  With ``flax_seed`` the weights
+    are instead the ones the JAX package's `create_train_state` draws from
+    `PRNGKey(flax_seed)` (`models/flax_init.py`).
 
     ``dtype`` is the model's compute dtype
     (mvsdet_tpu/training/loop.py:37-51): bfloat16 runs the networks in
@@ -80,15 +84,20 @@ def create_train_state(cfg: Config, device="cuda",
     device = _device_for(device)
     model = MVSDet(cfg.model, sweep_chunk=sweep_chunk,
                    sweep_remat=sweep_remat, dtype=dtype)
-    return _train_state(cfg, model, device, generator, steps_per_epoch)
+    key = None if flax_seed is None else flax_init.prng_key(flax_seed)
+    return _train_state(cfg, model, device, generator, steps_per_epoch,
+                        flax_key=key)
 
 
 def _train_state(cfg: Config, model: nn.Module, device: torch.device,
                  generator: Optional[torch.Generator], steps_per_epoch: int,
-                 ray_seed: Optional[int] = None) -> TrainState:
+                 ray_seed: Optional[int] = None,
+                 flax_key=None) -> TrainState:
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)
+    if flax_key is not None:
+        flax_init.draw_flax_init(model, flax_key)
     model.to(device).train()
     optimizer, scheduler = build_optimizer(cfg.optim, model, steps_per_epoch)
     return TrainState(model, optimizer, scheduler,
@@ -99,22 +108,31 @@ def create_nerfdet_state(cfg: Config, device="cuda",
                          generator: Optional[torch.Generator] = None,
                          steps_per_epoch: int = 1000,
                          seed: Optional[int] = None,
+                         dtype: torch.dtype = torch.float32,
+                         flax_seed: Optional[int] = None,
                          **model_fields) -> TrainState:
     """A legacy NeRF-Det in train mode (mvsdet_tpu/training/loop.py:70-98)
     with random weights from ``generator`` (default: seeded with
     ``cfg.seed``) on ``device``, the AdamW, clip and MultiStepLR of
     `create_train_state`, at step 0.  ``seed`` (default ``cfg.seed``)
     seeds the step's ray draws; ``model_fields`` are `NerfDetLegacy`'s
-    (``n_samples``, ``n_rand``, ...).  NeRF-Det computes in float32 (its
-    bf16 is ROADMAP M16b).
+    (``n_samples``, ``n_rand``, ...).  ``dtype`` is the model's compute
+    dtype, as in `create_train_state`: with bfloat16 the networks compute
+    in bf16, while the parameters, their gradients and the AdamW moments
+    stay float32.  With ``flax_seed`` the weights are the ones the JAX
+    package's `create_nerfdet_state` draws from `PRNGKey(flax_seed)`: its
+    init takes the first key of that key's split.
 
     Runs on the card unless the caller asks for the CPU; raises when CUDA
     is missing and ``device="cpu"`` was not asked for.
     """
     device = _device_for(device)
-    model = NerfDetLegacy(cfg.model, **model_fields)
+    model = NerfDetLegacy(cfg.model, dtype=dtype, **model_fields)
+    key = (None if flax_seed is None
+           else flax_init.split(flax_init.prng_key(flax_seed))[0])
     return _train_state(cfg, model, device, generator, steps_per_epoch,
-                        ray_seed=cfg.seed if seed is None else seed)
+                        ray_seed=cfg.seed if seed is None else seed,
+                        flax_key=key)
 
 
 def ray_generator(seed: int, step: int, device) -> torch.Generator:

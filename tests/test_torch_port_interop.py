@@ -47,7 +47,9 @@ M15_MODULES = (
 M16_MODULES = (
     "mvsdet_torch.models.nerfdet", "mvsdet_torch.models.nerf_mlp",
     "mvsdet_torch.ops.ray_render", "mvsdet_torch.training.loop")
-NAMED_MODULES = M13_MODULES + M15_MODULES + M16_MODULES
+# the learning check, named for the same reason
+M18_MODULES = ("mvsdet_torch.tools.overfit_map", "mvsdet_torch.models.flax_init")
+NAMED_MODULES = M13_MODULES + M15_MODULES + M16_MODULES + M18_MODULES
 
 
 def _leaf(path, shape, rng):

@@ -15,8 +15,8 @@ launchers on the CPU, held against the JAX package.
   (gloo): `train` writes one log and one checkpoint, from rank 0, and its
   ranks end with equal parameters (bit for bit, also equal to that
   checkpoint's); `test` prints the metric dict of one process.
-- `train --model nerfdet`: its steps, evaluations and checkpoints, and
-  a resumed run drawing the rays of an unbroken one.
+- `train --model nerfdet`: its steps, evaluations and checkpoints, a
+  resumed run drawing the rays of an unbroken one, and a step in bf16.
 - The launchers run on the card unless `--device cpu` is given, and
   refuse the options that wait for later parts of the port.
 """
@@ -262,6 +262,19 @@ def test_train_launcher_nerfdet_resume_draws_as_unbroken(tmp_path,
             == {k: v for k, v in b.items() if k != "time"}
 
 
+def test_train_launcher_nerfdet_bf16(tmp_path):
+    """`--model nerfdet --dtype bfloat16` is taken: one step of a NeRF-Det
+    computing in bf16, its loss terms finite, its parameters float32."""
+    cfg = frozen_backbone(narrow(tiny_test_config()))
+    state = train_launcher.train(cfg, nerfdet_args(
+        tmp_path, "--steps", "1", "--dtype", "bfloat16"))
+    (step,) = [r for r in records(tmp_path) if "loss" in r]
+    assert step["step"] == 0 and step["loss_nvs"] > 0
+    assert all(np.isfinite(v) for v in step.values())
+    assert state.model.dtype == torch.bfloat16 and state.step == 1
+    assert {p.dtype for p in state.model.parameters()} == {torch.float32}
+
+
 def torchvision_state_dict(seed=0):
     """Random weights under torchvision's resnet50 names and shapes (its
     classifier included), written out here, not taken from the port."""
@@ -385,7 +398,6 @@ def test_launchers_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("launcher,flags", [
-    (train_launcher, ["--model", "nerfdet", "--dtype", "bfloat16"]),
     (train_launcher, ["--model", "nerfdet", "--data-parallel", "2"]),
     (test_launcher, ["--diagnostics"]),
     (test_launcher, ["--vis-dir", "out"])])
