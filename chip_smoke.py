@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the port's predict path and training step on one NVIDIA card, in
-the ScanNet and the ARKit configurations, alone and sharded over rank
-processes, the legacy NeRF-Det's training and evaluation, and the
-learning check, and check them.
+"""Drive the port's predict path (with and without its diagnostics) and
+training step on one NVIDIA card, in the ScanNet and the ARKit
+configurations, alone and sharded over rank processes, the legacy
+NeRF-Det's training and evaluation, and the learning check, and check
+them.
 
     python3 chip_smoke.py            # from the root of the repository
 
@@ -24,6 +25,10 @@ Phases, each printed as one JSON line:
            exercises it) and slots clipped at alpha 0.99: max error
            <= 1e-4 of max |plain| for ddata and for dvals, and a second
            launch bit-equal to the first
+  K1_c1    the compositor with one channel (the predict's rendered depth)
+           on random tables at the predict's shape (T=80, K=2048, C=1, 30%
+           empty slots): max abs error <= 1e-4, and a second launch
+           bit-equal to the first
   K3       the voxel-lift gather against its plain version and against
            F.embedding_bag at N=80, HW=4800, C=256, V=25600: bit-equal to
            the plain version and to a second launch
@@ -56,6 +61,28 @@ Phases, each printed as one JSON line:
            equal under the mask.  Run in float32, then with the model
            computing in bf16 (`dtype` in each line), where every K3
            launch is its bf16 variant
+  diagnostics
+           the same three scenes through `make_predict_fn(...,
+           diagnostics=True)`, launch counts set to 0 just before and read
+           just after (K1 twice a scene, once with one channel for the
+           rendered depth, K3 once, the backward kernels never);
+           rendered_depth (1, 120, 160) finite and at most the far plane
+           + 1, weight_gap in [0, 1], src_rmse finite, the flat Gaussians
+           finite; the steady predict time without and with the
+           diagnostics; then `diagnostics_vs_plain`, the first scene with
+           the plain versions: rendered_depth within 1e-4 of max |plain|,
+           weight_gap and src_rmse within 1e-5 relative, the Gaussians
+           within 1e-5.  Float32, then bf16
+  dense_vs_tiled
+           the Gaussians the model predicts from 8 source views (G =
+           38,400) rendered into the 120x160 target by the dense exact
+           renderer (`ops/splat.py` `render_view`), colour and depth,
+           against `render_view_tiled` with every Gaussian binned into
+           every tile (K1 then sees every pair the dense renderer sees):
+           within 1e-3 max abs; beside it, what the tiled renderer's
+           3-sigma bins drop at a capacity that holds every bin
+           (reported); the dense renderer's time and peak memory, and
+           those of one forward and backward of its colour render
   train    `scannet_config()` with seeded random weights, one synthetic
            scene of 40 source views (240x320) and 2 targets (120x160),
            3 steps through `fit`, launch counts set to 0 just before and
@@ -115,13 +142,18 @@ Phases, each printed as one JSON line:
            the trained ones (a head parameter equal to `best`'s and unlike
            the untrained one), the metric dict has mAP_0.25, mAP_0.50,
            psnr, ssim, predict_s_first and predict_s_per_scene, K1 and K3
-           launched once per scene; then the same evaluation with the
+           launched once per scene; again with `--diagnostics --vis-dir
+           build/vis`: finite depth_rmse, weight_gap and src_rmse, each
+           scene's PNGs and a PLY of more than 0 vertices, K1 twice and
+           K3 once a scene, the hook's seconds per scene; then the same
+           evaluation with `--diagnostics`, with the
            kernels and with the plain versions, cuDNN deterministic
            (`launch_test_vs_plain`), from a copy of `best` whose head is
            fitted in closed form to the scenes' spheres on its own neck
            features (`detecting_head`): mAP_0.25 above 0, the boxes,
            scores and labels the mAP is given equal (boxes and scores to
-           1e-5), every AP equal, psnr and ssim within 1e-4 relative; then
+           1e-5), every AP equal, psnr and ssim and depth_rmse within
+           1e-4 relative, weight_gap and src_rmse within 1e-5; then
            `--arkit` on 2 scenes in bf16: 7-dim boxes reach the mAP, the
            same keys, K1 and K3 (bf16) once per scene
   parallel_train
@@ -154,12 +186,14 @@ Phases, each printed as one JSON line:
            `make_sharded_train_step` bit-equal to `train_step`'s (every
            parameter, statistic and loss term)
   parallel_predict
-           the test launcher's `evaluate` with `--data-parallel 2` on 2
-           ranks from `launch_test`'s fitted checkpoint on its 3 scenes
-           (80 views; the last group padded): the APs equal, psnr and ssim
-           within 1e-4, the boxes, scores and labels given to the mAP
-           equal (1e-5) to `launch_test_vs_plain`'s one scene at a time;
-           K1 and K3 twice on each rank
+           the test launcher's `evaluate` with `--data-parallel 2
+           --diagnostics` on 2 ranks from `launch_test`'s fitted
+           checkpoint on its 3 scenes (80 views; the last group padded):
+           the APs equal, psnr and ssim within 1e-4, depth_rmse,
+           weight_gap and src_rmse within 1e-5, the boxes, scores and
+           labels given to the mAP equal (1e-5) to
+           `launch_test_vs_plain`'s one scene at a time; K1 four times
+           (twice with one channel) and K3 twice on each rank
   launch_train_parallel
            `python -m torch.distributed.run --standalone --nproc_per_node
            2 chip_smoke.py --launch-rank DIR` with the train launcher's
@@ -244,7 +278,9 @@ Phases, each printed as one JSON line:
            (`host_paced_ms`), its plain version's time, its bound and the
            time of one PyTorch call computing the same function, at the
            inputs the train step gave it; K1's time on the predict's
-           tables; for K1 and K2 also the bound that charges the cull test
+           tables; K1 with one channel (`composite_tiles_c1`) on the
+           tables the float32 diagnostics predict gave it, with its
+           one-channel launches there; for K1 and K2 also the bound that charges the cull test
            to every pair (`all_pairs_bound_ms`, the count before the
            kernels culled by box); for K4 and K5 (each timed with its own
            index build, as a wrapper called alone builds it) the index
@@ -313,6 +349,10 @@ QUEUE_AHEAD_CYCLES = 10_000_000
 BACKWARD_REPS = 8
 SOURCES = ("composite_tiles", "composite_tiles_bwd", "weighted_gather_sum",
            "weighted_gather_sum_bwd")
+# the metrics a diagnostics evaluation adds (`evaluate_scenes`)
+DIAGNOSTICS_METRICS = ("depth_rmse", "weight_gap", "src_rmse")
+# the Gaussians of the dense renderer's check: 8 source views' worth
+DENSE_SOURCE_VIEWS = 8
 
 
 T0 = time.perf_counter()
@@ -743,13 +783,15 @@ def embedding_bag_backward_fn(feat, pix, weight, g):
 
 class Recorder:
     """Stands in for a kernel wrapper at its call site: calls `fn` and
-    keeps the first call's inputs and output.  A wrapper counts its own
+    keeps the first call's inputs and output (the first whose inputs
+    ``keep`` accepts, where it is given).  A wrapper counts its own
     launches through its module's name for it, which then names the
     Recorder, so `launches` and `bf16_launches` pass through to the
     wrapper."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, keep=None):
         self.fn = fn
+        self.keep = keep
         self.args = self.out = None
 
     @property
@@ -770,7 +812,7 @@ class Recorder:
 
     def __call__(self, *args):
         out = self.fn(*args)
-        if self.args is None:
+        if self.args is None and (self.keep is None or self.keep(args)):
             self.args, self.out = args, out
         return out
 
@@ -848,6 +890,7 @@ def _launch_counts():
 
 
 def _reset_launches(fns):
+    fns["composite_tiles"].c1_launches = 0
     for fn in fns.values():
         fn.launches = 0
         if hasattr(fn, "bf16_launches"):
@@ -1042,9 +1085,10 @@ def job_nccl(rank, out):
 
 def job_predict(rank, out, checkpoint, n_scenes):
     """The test launcher's `evaluate` with `--data-parallel` of every rank
-    from ``checkpoint`` on ``n_scenes`` synthetic 80-view scenes: its
-    metric dict and the boxes, scores and labels each scene gave the
-    mAP."""
+    and `--diagnostics` from ``checkpoint`` on ``n_scenes`` synthetic
+    80-view scenes: its metric dict, the boxes, scores and labels each
+    scene gave the mAP, and its launches (the one-channel K1 launches
+    apart)."""
     from unittest import mock
 
     from mvsdet_torch.config import scannet_config
@@ -1068,10 +1112,12 @@ def job_predict(rank, out, checkpoint, n_scenes):
                                          test_launcher.parse_args([
                                              "--synthetic", str(n_scenes),
                                              "--checkpoint", checkpoint,
-                                             "--data-parallel", str(world)]))
+                                             "--data-parallel", str(world),
+                                             "--diagnostics"]))
     launches, bf16_launches = _read_launches(fns)
     return dict(results=results, launches=launches,
                 bf16_launches=bf16_launches,
+                c1_launches=fns["composite_tiles"].c1_launches,
                 preds=[{k: v.tolist() for k, v in p.items()}
                        for p in scored],
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1272,9 +1318,9 @@ def parallel_train_phase(cfg):
 
 def parallel_predict_phase(checkpoint, n_scenes, single, single_scored):
     """`parallel_predict`: the test launcher's evaluation with
-    `--data-parallel 2` on 2 ranks against the same evaluation one scene
-    at a time (``single``, with the boxes, scores and labels each scene
-    gave the mAP, ``single_scored``)."""
+    `--data-parallel 2 --diagnostics` on 2 ranks against the same
+    evaluation one scene at a time (``single``, with the boxes, scores and
+    labels each scene gave the mAP, ``single_scored``)."""
     ranks = run_ranks("predict", 2, str(checkpoint), n_scenes)
     got = ranks[0]["results"]
     aps = sorted(k for k in single if k.startswith(("AP_", "mAP", "mAR")))
@@ -1282,6 +1328,8 @@ def parallel_predict_phase(checkpoint, n_scenes, single, single_scored):
                                                for k in aps)
     nvs_rel = {k: abs(got[k] - single[k]) / abs(single[k])
                for k in ("psnr", "ssim")}
+    diag_rel = {k: abs(got[k] - single[k]) / abs(single[k])
+                for k in DIAGNOSTICS_METRICS}
     pairs = list(zip(ranks[0]["preds"], single_scored))
     preds_equal = len(pairs) == n_scenes and all(
         np.array_equal(a["labels"], b["labels"])
@@ -1290,11 +1338,13 @@ def parallel_predict_phase(checkpoint, n_scenes, single, single_scored):
         for a, b in pairs)
     emit(phase="parallel_predict", backend=ranks[0]["backend"], ranks=2,
          group_size=2, scenes=n_scenes, aps_equal=ap_equal,
-         nvs_rel_err=nvs_rel, preds_equal=preds_equal,
-         map_025=got["mAP_0.25"],
+         nvs_rel_err=nvs_rel, diagnostics_rel_err=diag_rel,
+         diagnostics={k: got[k] for k in DIAGNOSTICS_METRICS},
+         preds_equal=preds_equal, map_025=got["mAP_0.25"],
          predict_s=[(r["results"]["predict_s_first"],
                      r["results"].get("predict_s_per_scene")) for r in ranks],
          launches=[r["launches"] for r in ranks],
+         c1_launches=[r["c1_launches"] for r in ranks],
          peak_memory_gb=[r["peak_memory_gb"] for r in ranks])
     untimed = lambda res: {k: v for k, v in res.items()
                            if not k.startswith("predict_s")}
@@ -1307,12 +1357,16 @@ def parallel_predict_phase(checkpoint, n_scenes, single, single_scored):
     check(ap_equal, f"parallel_predict: APs differ: {got} against {single}")
     check(max(nvs_rel.values()) <= 1e-4,
           f"parallel_predict: psnr/ssim differ by {nvs_rel}")
+    check(max(diag_rel.values()) <= 1e-5,
+          f"parallel_predict: the diagnostics differ by {diag_rel}")
     for r in ranks:
-        # each rank predicts one scene of each group of 2, the last padded
-        want = {name: 2 * (name in ("composite_tiles", "weighted_gather_sum"))
-                for name in r["launches"]}
-        check(r["launches"] == want,
-              f"parallel_predict rank {r['rank']}: launches {r['launches']}")
+        # each rank predicts one scene of each group of 2, the last padded:
+        # K1 twice a scene (colour, then the one-channel depth), K3 once
+        want = {name: {"composite_tiles": 4, "weighted_gather_sum": 2}.get(
+                    name, 0) for name in r["launches"]}
+        check(r["launches"] == want and r["c1_launches"] == 2,
+              f"parallel_predict rank {r['rank']}: launches {r['launches']}, "
+              f"one-channel K1 {r['c1_launches']}")
 
 
 def launch_rank(out: str, argv) -> None:
@@ -2050,6 +2104,7 @@ def main(argv=None) -> int:
             fn.launches = 0
         for fn in counted_bf16.values():
             fn.bf16_launches = 0
+        composite_tiles.c1_launches = 0
 
     def read_launches():
         return ({name: fn.launches for name, fn in counted.items()},
@@ -2088,6 +2143,19 @@ def main(argv=None) -> int:
                  data, vals, 10), reps=3))
         check(err <= 1e-4, f"K1 at T={n_tiles}: max abs error {err} > 1e-4")
         check(same, f"K1 at T={n_tiles}: two launches differ")
+
+    # the one-channel compositor of the predict's rendered depth
+    data, vals = random_tables(80, 2048, 1, g)
+    got = composite_tiles(data, vals, 10)
+    err = (got - composite_tiles_reference(data, vals, 10)).abs().max().item()
+    same = torch.equal(got, composite_tiles(data, vals, 10))
+    emit(phase="K1_c1", tiles=80, k=2048, c=1, max_abs_err=err,
+         bit_equal_relaunch=same,
+         ms=cuda_ms(lambda: composite_tiles(data, vals, 10)),
+         plain_ms=cuda_ms(lambda: composite_tiles_reference(data, vals, 10),
+                          reps=3))
+    check(err <= 1e-4, f"K1 at C=1: max abs error {err} > 1e-4")
+    check(same, "K1 at C=1: two launches differ")
 
     data, vals = random_tables(160, 2048, 3, g, clipped=0.05)
     cot = torch.randn(160, 4, 256, device="cuda", generator=g)
@@ -2322,6 +2390,238 @@ def main(argv=None) -> int:
         del model, predict, preds, runs, pk, pp, lk, lp, ck
         torch.cuda.empty_cache()
         return launches, bf16_launches, k1_args, k3_args
+
+    def diagnostics_phases(cfg, scenes, dtype):
+        """`diagnostics`: each scene through make_predict_fn with the
+        diagnostics, the launch counts set to 0 just before and read just
+        after (K1 twice a scene, once with one channel for the rendered
+        depth, K3 once, the backward kernels never); the outputs' shapes
+        and ranges; the steady predict time without and with them.  Then
+        `diagnostics_vs_plain`: the first scene with the kernels against
+        it with the plain versions.  Returns the launches, the one-channel
+        K1 launches and that K1 launch's inputs."""
+        label = str(dtype).replace("torch.", "")
+        mc = cfg.model
+        n_scenes = len(scenes)
+        model = build_model(cfg, device="cuda", dtype=dtype,
+                            generator=torch.Generator().manual_seed(cfg.seed))
+        predict = make_predict_fn(model, diagnostics=True)
+        plain_predict = make_predict_fn(model)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        preds, latency = [], []
+        for scene in scenes:
+            t0 = time.perf_counter()
+            preds.append(predict(scene))
+            latency.append((time.perf_counter() - t0) * 1e3)
+        launches, bf16_launches = read_launches()
+        c1 = composite_tiles.c1_launches
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        check_launches(
+            launches, bf16_launches,
+            {name: {"composite_tiles": 2 * n_scenes,
+                    "weighted_gather_sum": n_scenes}.get(name, 0)
+             for name in launches},
+            {name: n_scenes if (name == "weighted_gather_sum"
+                                and dtype == bf16) else 0
+             for name in bf16_launches}, f"{n_scenes} {label} diagnostics")
+        check(c1 == n_scenes, f"{label} diagnostics: {c1} one-channel K1 "
+                              f"launches, expected {n_scenes}")
+        far = mc.near_far_range[1]
+        gs_keys = ("gs_means", "gs_covariances", "gs_harmonics",
+                   "gs_opacities")
+        for pred in preds:
+            depth = pred["rendered_depth"]
+            check(depth.shape == (1,) + mc.target_size
+                  and depth.dtype == np.float32,
+                  f"rendered_depth: {depth.dtype} {depth.shape}")
+            check(bool(np.all(np.isfinite(depth))) and depth.max() <= far + 1
+                  and depth.max() > 0,
+                  f"rendered_depth: max {depth.max()}, scene range {far}")
+            check(0 <= float(pred["weight_gap"]) <= 1
+                  and np.isfinite(pred["src_rmse"]),
+                  f"weight_gap {pred['weight_gap']}, src_rmse "
+                  f"{pred['src_rmse']}")
+            g = pred["gs_means"].shape[0]
+            check(all(pred[k].shape[0] == g
+                      and np.all(np.isfinite(pred[k])) for k in gs_keys),
+                  f"the Gaussians' arrays: "
+                  f"{[pred[k].shape for k in gs_keys]}")
+        # steady state: the scenes after the first, each without and with
+        steady = {"plain": [], "diagnostics": []}
+        for scene in scenes[1:]:
+            for name, fn in (("plain", plain_predict),
+                             ("diagnostics", predict)):
+                t0 = time.perf_counter()
+                fn(scene)
+                steady[name].append((time.perf_counter() - t0) * 1e3)
+        emit(phase="diagnostics", dtype=label, scenes=n_scenes,
+             views=cfg.data.n_src_test, latency_ms=latency,
+             steady_plain_ms=steady["plain"],
+             steady_diagnostics_ms=steady["diagnostics"],
+             launches=launches, bf16_launches=bf16_launches,
+             c1_launches=c1, peak_memory_gb=peak,
+             gaussians=int(preds[0]["gs_means"].shape[0]),
+             gs_host_mb=sum(preds[0][k].nbytes for k in gs_keys) / 1e6,
+             rendered_depth_max=[float(p["rendered_depth"].max())
+                                 for p in preds],
+             weight_gap=[float(p["weight_gap"]) for p in preds],
+             src_rmse=[float(p["src_rmse"]) for p in preds])
+
+        # the first scene with the plain versions in place of the kernels
+        torch.backends.cudnn.deterministic = True
+        runs = {}
+        for run, lift_fn, comp_fn in (
+                ("kernel", weighted_gather_sum, composite_tiles),
+                ("plain", weighted_gather_sum_reference,
+                 composite_tiles_reference)):
+            comp = Recorder(comp_fn, keep=lambda args: args[1].shape[1] == 1)
+            with mock.patch.object(voxel_lift, "weighted_gather_sum",
+                                   lift_fn), \
+                    mock.patch.object(splat_tiles, "composite_tiles", comp):
+                runs[run] = (predict(scenes[0]), comp)
+        (pk, ck), (pp, _) = runs["kernel"], runs["plain"]
+        depth_err = float(np.abs(pk["rendered_depth"]
+                                 - pp["rendered_depth"]).max())
+        depth_tol = 1e-4 * float(np.abs(pp["rendered_depth"]).max())
+        lift_rel = {k: abs(float(pk[k]) - float(pp[k])) / abs(float(pp[k]))
+                    for k in ("weight_gap", "src_rmse")}
+        gs_err = {k: float(np.abs(pk[k] - pp[k]).max()) for k in gs_keys}
+        gs_equal = all(np.allclose(pk[k], pp[k], rtol=1e-5, atol=1e-5)
+                       for k in gs_keys)
+        emit(phase="diagnostics_vs_plain", dtype=label,
+             rendered_depth_max_abs_err=depth_err,
+             rendered_depth_tol=depth_tol, lift_rel_err=lift_rel,
+             gs_max_abs_err=gs_err)
+        check(depth_err <= depth_tol,
+              f"diagnostics {label}: rendered_depth differs by {depth_err} "
+              f"> {depth_tol}")
+        check(max(lift_rel.values()) <= 1e-5,
+              f"diagnostics {label}: weight_gap/src_rmse differ: {lift_rel}")
+        check(gs_equal, f"diagnostics {label}: the Gaussians differ: "
+                        f"{gs_err}")
+        k1_c1_args = detached(ck.args)
+        check(k1_c1_args[1].shape[1] == 1, "the depth's K1 launch was not "
+                                           "recorded")
+        torch.backends.cudnn.deterministic = False
+        del model, predict, plain_predict, preds, runs, pk, pp, ck
+        torch.cuda.empty_cache()
+        return launches, c1, k1_c1_args
+
+    def dense_vs_tiled_phase(cfg):
+        """`dense_vs_tiled`: the Gaussians `scannet_config()` predicts from
+        DENSE_SOURCE_VIEWS source views (one target, each of its
+        DENSE_SOURCE_VIEWS nearest views rendered) through the dense
+        `render_view`, colour and depth, against `render_view_tiled`
+        binning every Gaussian into every tile (capacity G, so K1 sees
+        each pair the dense renderer sees and culls by its own exact
+        alpha boxes): within 1e-3 max abs.  Beside it, the tiled renderer
+        as the model runs it (3-sigma tile bins, with a capacity that holds
+        every tile's): what the bins drop, reported.  The dense renderer's
+        time and peak memory, forward alone and, for the colour, with its
+        backward."""
+        from mvsdet_torch.ops.splat import project_gaussians, render_view
+        from mvsdet_torch.ops.splat_tiles import (TILE, render_view_tiled,
+                                                  splat_radii)
+        mc = cfg.model
+        cfg8 = dataclasses.replace(cfg, model=dataclasses.replace(
+            mc, gs=dataclasses.replace(
+                mc.gs, render_src_per_target=DENSE_SOURCE_VIEWS)))
+        scene = make_synthetic_scene(cfg8, seed=0,
+                                     n_views=DENSE_SOURCE_VIEWS + 1,
+                                     n_targets=1)
+        model = build_model(cfg8, device="cuda",
+                            generator=torch.Generator().manual_seed(cfg.seed))
+        batch = {k: torch.as_tensor(v).cuda() for k, v in scene.items()}
+        with torch.no_grad():
+            gs = model(batch)["gaussians"]
+            k = model._target_intrinsics(batch, mc.target_size)[0]
+        c2w = batch["tgt_c2w"][0]
+        n_gs = gs.means.shape[0]
+        check(n_gs == DENSE_SOURCE_VIEWS * mc.feature_size[0]
+              * mc.feature_size[1], f"dense_vs_tiled: {n_gs} Gaussians")
+        w2c = torch.linalg.inv(c2w)
+        z = (gs.means @ w2c[2, :3] + w2c[2, 3])[:, None]
+        bg = torch.tensor(mc.gs.background_color, device="cuda")
+        # the most Gaussians any tile's 3-sigma bin holds: the capacity at
+        # which the tiled renderer drops none of its bins
+        h, w = mc.target_size
+        mean2d, _, _, valid, cov_tri = project_gaussians(
+            gs.means, gs.covariances, c2w, k, mc.target_size)
+        rad = splat_radii(cov_tri)
+        lo = torch.floor((mean2d - rad[:, None]) / TILE)
+        hi = torch.floor((mean2d + rad[:, None]) / TILE)
+        ty = torch.arange(-(-h // TILE), device="cuda")
+        tx = torch.arange(-(-w // TILE), device="cuda")
+        per_tile = ((ty[None, :, None] >= lo[:, 1, None, None])
+                    & (ty[None, :, None] <= hi[:, 1, None, None])
+                    & (tx[None, None, :] >= lo[:, 0, None, None])
+                    & (tx[None, None, :] <= hi[:, 0, None, None])
+                    & valid[:, None, None]).sum(0)
+        most = int(per_tile.max())
+        capacity = max(mc.gs.splat_capacity, -(-most // 128) * 128)
+        del mean2d, valid, cov_tri, rad, lo, hi, per_tile
+        args = (gs.means, gs.covariances, gs.harmonics, gs.opacities, c2w, k,
+                mc.target_size)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            dense = (render_view(*args, background=bg),
+                     render_view(*args, value_override=z))
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+
+        def tiled(capacity):
+            with torch.no_grad():
+                return (render_view_tiled(*args, background=bg,
+                                          capacity=capacity),
+                        render_view_tiled(*args, capacity=capacity,
+                                          value_override=z))
+
+        def errs(a, b):
+            return [(x - y).abs().max().item() for x, y in zip(a, b)]
+
+        # one backward of the dense colour render, as a training step
+        # would take it: every chunk's intermediates kept
+        leaves = [a.detach().requires_grad_() for a in args[:4]]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        render_view(*leaves, *args[4:], background=bg).square().sum() \
+            .backward()
+        torch.cuda.synchronize()
+        backward_s = time.perf_counter() - t0
+        backward_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        grads_finite = all(bool(torch.isfinite(a.grad).all())
+                           for a in leaves)
+        del leaves
+        binned = errs(dense, tiled(capacity))
+        # every Gaussian in every tile's bin: only K1's cull boxes remain
+        with mock.patch.object(splat_tiles, "splat_radii",
+                               lambda cov: torch.full_like(cov[:, 0], 1e9)):
+            unbinned = errs(dense, tiled(-(-n_gs // 128) * 128))
+        emit(phase="dense_vs_tiled", source_views=DENSE_SOURCE_VIEWS,
+             gaussians=n_gs, image=list(mc.target_size),
+             rgb_max_abs_err=unbinned[0], depth_max_abs_err=unbinned[1],
+             binned_most_per_tile=most, binned_capacity=capacity,
+             binned_rgb_max_abs_err=binned[0],
+             binned_depth_max_abs_err=binned[1],
+             depth_max=dense[1].max().item(), dense_s=dense_s,
+             dense_peak_gb_over_inputs=peak,
+             dense_colour_forward_backward_s=backward_s,
+             dense_colour_backward_peak_gb_over_inputs=backward_peak)
+        check(dense[1].max().item() > 0, "dense_vs_tiled: no depth")
+        check(grads_finite, "dense_vs_tiled: the dense render's gradients "
+                            "are not finite")
+        check(max(unbinned) <= 1e-3,
+              f"dense_vs_tiled: colour differs by {unbinned[0]}, depth by "
+              f"{unbinned[1]} > 1e-3")
+        del model, batch, gs, args, dense, z
+        torch.cuda.empty_cache()
 
     def train_phases(cfg, dtype, scene, grads32=None, phase="train"):
         """TRAIN_STEPS steps through fit with the launch counts set to 0
@@ -2630,11 +2930,69 @@ def main(argv=None) -> int:
                        {name: N_SCENES * (name in per_eval)
                         for name in launches},
                        {name: 0 for name in bf16_launches}, "launch_test")
+
+        # -- again with --diagnostics --vis-dir: the depth metrics, and the
+        # images and the PLY of each scene, the hook timed ------------------
+        vis = work.parent / "vis"
+        shutil.rmtree(vis, ignore_errors=True)
+        hook_s = []
+        make_vis_hook = test_launcher.make_vis_hook
+
+        def timed_vis_hook(*args):
+            hook = make_vis_hook(*args)
+
+            def timed(*scene):
+                t0 = time.perf_counter()
+                hook(*scene)
+                hook_s.append(time.perf_counter() - t0)
+            return timed
+
+        reset_launches()
+        with mock.patch.object(test_launcher, "make_vis_hook",
+                               timed_vis_hook):
+            results = test_launcher.main(argv + ["--diagnostics",
+                                                 "--vis-dir", str(vis)])
+        launches, bf16_launches = read_launches()
+        c1 = composite_tiles.c1_launches
+        vis_files = ["boxes_0.png", "boxes_1.png", "boxes_2.png",
+                     "render_0.png", "gt_0.png", "render_depth_0.png",
+                     "src_depth_0.png", "src_depth_1.png", "src_depth_2.png"]
+        missing, vertices = [], []
+        for si in range(N_SCENES):
+            d = vis / f"scene{si:04d}"
+            missing += [f"{d.name}/{f}" for f in vis_files
+                        if not (d / f).is_file()
+                        or (d / f).read_bytes()[:4] != b"\x89PNG"]
+            ply = d / "gaussians.ply"
+            header = ply.read_bytes()[:1024].split(b"end_header")[0] \
+                if ply.is_file() else b""
+            vertices.append(int(header.split(b"element vertex ")[1]
+                                .split()[0]) if header else 0)
+        emit(phase="launch_test", dtype="float32", scenes=N_SCENES,
+             diagnostics=True, results=results, launches=launches,
+             bf16_launches=bf16_launches, c1_launches=c1,
+             vis_hook_s=hook_s, ply_vertices=vertices,
+             missing_files=missing)
+        check(all(np.isfinite(results.get(k, np.nan))
+                  for k in DIAGNOSTICS_METRICS) and keys <= set(results),
+              f"launch_test --diagnostics: metrics {results}")
+        check(not missing and len(hook_s) == N_SCENES,
+              f"launch_test --vis-dir: missing {missing}, hooks {hook_s}")
+        check(min(vertices) > 0, f"launch_test --vis-dir: PLY vertices "
+                                 f"{vertices}")
+        check_launches(launches, bf16_launches,
+                       {name: {"composite_tiles": 2 * N_SCENES,
+                               "weighted_gather_sum": N_SCENES}.get(name, 0)
+                        for name in launches},
+                       {name: 0 for name in bf16_launches},
+                       "launch_test --diagnostics")
+        check(c1 == N_SCENES, f"launch_test --diagnostics: {c1} "
+                              f"one-channel K1 launches")
         # the same evaluation with the kernels and with the plain versions,
         # cuDNN deterministic, as `predict_vs_plain` swaps them, from a head
         # fitted to detect these scenes
         argv = ["--synthetic", str(N_SCENES), "--checkpoint",
-                str(work / "detecting")]
+                str(work / "detecting"), "--diagnostics"]
         tuned, fit = detecting_head(models[0], cfg)
         torch.save({"model": tuned}, work / "detecting")
         del tuned
@@ -2661,6 +3019,8 @@ def main(argv=None) -> int:
             kernel[k] == plain[k] for k in aps)
         nvs_rel = {k: abs(kernel[k] - plain[k]) / abs(plain[k])
                    for k in ("psnr", "ssim")}
+        diag_rel = {k: abs(kernel[k] - plain[k]) / abs(plain[k])
+                    for k in DIAGNOSTICS_METRICS}
         # the boxes, scores and labels the mAP was given, scene by scene
         pairs = list(zip(scored["kernel"], scored["plain"]))
         preds_equal = len(pairs) == N_SCENES and all(
@@ -2669,7 +3029,8 @@ def main(argv=None) -> int:
             and np.allclose(a["scores"], b["scores"], rtol=1e-5, atol=1e-5)
             for a, b in pairs)
         emit(phase="launch_test_vs_plain", aps_equal=ap_equal,
-             nvs_rel_err=nvs_rel, kernel={k: kernel[k] for k in aps[-4:]},
+             nvs_rel_err=nvs_rel, diagnostics_rel_err=diag_rel,
+             kernel={k: kernel[k] for k in aps[-4:]},
              plain={k: plain[k] for k in aps[-4:]},
              boxes_per_scene=[len(b["labels"]) for _, b in pairs],
              preds_equal=preds_equal, head_fit=fit)
@@ -2684,6 +3045,12 @@ def main(argv=None) -> int:
         check(max(nvs_rel.values()) <= 1e-4,
               f"launch_test: psnr/ssim differ from the plain versions' by "
               f"{nvs_rel}")
+        # the rendered depth to 1e-4, the lift's diagnostics to 1e-5, as
+        # `diagnostics_vs_plain` holds them
+        check(diag_rel["depth_rmse"] <= 1e-4
+              and max(diag_rel["weight_gap"], diag_rel["src_rmse"]) <= 1e-5,
+              f"launch_test: the diagnostics differ from the plain "
+              f"versions' by {diag_rel}")
         detecting = (work / "detecting", kernel, scored["kernel"])
 
         # -- test --arkit in bf16: the rotated mAP ----------------------------
@@ -2725,6 +3092,10 @@ def main(argv=None) -> int:
     check_cull(cull, "predict")
     _, predict_bf16_launches, _, k3b_predict_args = predict_phases(
         cfg, scenes, bf16)
+    diag_launches, diag_c1_launches, k1_c1_args = diagnostics_phases(
+        cfg, scenes, torch.float32)
+    diagnostics_phases(cfg, scenes, bf16)
+    dense_vs_tiled_phase(cfg)
 
     scene = make_synthetic_scene(cfg, seed=0, n_views=cfg.data.n_src_train,
                                  n_targets=cfg.data.nerf_target_views_train)
@@ -2825,6 +3196,17 @@ def main(argv=None) -> int:
              + pix4.long()).flatten()
     index_b, index_by = index_bound(pix4, hw4)
     k1_b, k1_by = k1_bound(k1_args[0], k1_args[1], cull)
+    # K1 at C=1 on the tables the float32 diagnostics predict gave it
+    cull_c1 = cull_check(k1_c1_args[0], k1_c1_args[2])
+    emit(phase="cull", tables="diagnostics_depth",
+         tiles=k1_c1_args[0].shape[0], k=k1_c1_args[0].shape[2], **cull_c1)
+    check_cull(cull_c1, "diagnostics_depth")
+    k1c1_err = (composite_tiles(*k1_c1_args) - composite_tiles_reference(
+        *k1_c1_args)).abs().max().item()
+    check(k1c1_err <= 1e-4, f"K1 at C=1 on the depth's tables: {k1c1_err}")
+    k1c1_b, k1c1_by = k1_bound(k1_c1_args[0], k1_c1_args[1], cull_c1)
+    k1c1_all, _ = k1_bound(k1_c1_args[0], k1_c1_args[1], cull_c1,
+                           all_pairs=True)
     k2_b, k2_by = k2_bound(k2_args[0], k2_args[1], cull)
     k1_all, _ = k1_bound(k1_args[0], k1_args[1], cull, all_pairs=True)
     k2_all, _ = k2_bound(k2_args[0], k2_args[1], cull, all_pairs=True)
@@ -2853,6 +3235,22 @@ def main(argv=None) -> int:
              library_ms=None,
              shape=dict(tiles=k1_args[0].shape[0], k=k1_args[0].shape[2],
                         c=k1_args[1].shape[1])),
+        dict(name="composite_tiles_c1", route="cuda",
+             source="mvsdet_torch/ops/csrc/composite_tiles.cu",
+             replaces="mvsdet_tpu/ops/pallas/splat_kernel.py:48",
+             launches=diag_c1_launches,
+             predict_launches=diag_launches["composite_tiles"],
+             max_abs_err=k1c1_err,
+             ms=cuda_ms(lambda: composite_tiles(*k1_c1_args)),
+             host_paced_ms=cuda_ms(lambda: composite_tiles(*k1_c1_args),
+                                   queued=False),
+             plain_ms=cuda_ms(lambda: composite_tiles_reference(*k1_c1_args),
+                              reps=3),
+             bound_ms=k1c1_b, bound_by=k1c1_by, all_pairs_bound_ms=k1c1_all,
+             library_ms=None,
+             library_covers="none: no PyTorch call composites sorted splats",
+             shape=dict(tiles=k1_c1_args[0].shape[0],
+                        k=k1_c1_args[0].shape[2], c=k1_c1_args[1].shape[1])),
         dict(name="composite_tiles_bwd", route="cuda",
              source="mvsdet_torch/ops/csrc/composite_tiles_bwd.cu",
              replaces="mvsdet_tpu/ops/pallas/splat_kernel.py:126",
@@ -3075,7 +3473,8 @@ def main(argv=None) -> int:
                                                    nz))))
     if opts.save_kernel_inputs:
         torch.save({"k1": k1_args, "k2": k2_args,
-                    "k1_predict": k1_predict_args, "k3": k3_args,
+                    "k1_predict": k1_predict_args, "k1_c1": k1_c1_args,
+                    "k3": k3_args,
                     "k3_predict": k3_predict_args, "k4": k4_args,
                     "k5": k5_args, "k3_bf16": k3b_args,
                     "k3_bf16_predict": k3b_predict_args, "k4_bf16": k4b_args,

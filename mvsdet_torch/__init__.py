@@ -25,7 +25,12 @@ or, given `dtype=torch.bfloat16`, in bf16 as the JAX package's `dtype`
 does (parameters and optimizer state float32).  The legacy NeRF-Det
 (`models.nerfdet`, float32) trains through
 `training.loop.create_nerfdet_state` and `fit` and the train launcher's
-`--model nerfdet`; no kernel of `ops/csrc` is on its path.  The layout
+`--model nerfdet`; no kernel of `ops/csrc` is on its path.
+`predict(diagnostics=True)` and the test launcher's `--diagnostics` and
+`--vis-dir` add the rendered target depth (the compositor with one
+channel), the lift's GT-depth diagnostics and the per-scene images and
+PLY (`utils/`); `ops/splat.py` is the exact dense renderer behind
+`splat_impl="dense"`, and `utils/profiling.py` times and traces.  The layout
 mirrors the JAX package so each module's counterpart is found by path.  This package
 imports nothing of JAX or of `mvsdet_tpu`.
 """

@@ -7,11 +7,13 @@ batches and pulls and stages scene i+1 (or group i+1) on a thread while
 the card predicts scene i, keeping of each scene only what its metrics
 need (the JAX version copies every scene into a list first).  With
 `group_size` the ranks of a data group predict one scene each (the
-reference's `tools/dist_test.sh`).  The metrics of the JAX predict's
-diagnostics (`depth_rmse` of the rendered target depth,
-`weight_gap`, `src_rmse`) and `vis_hook` for the port's diagnostics: the
-port's predict returns none of what they read, and the JAX harness adds
-their keys only when a prediction carries it.
+reference's `tools/dist_test.sh`).  With ``diagnostics`` the predict
+closures also return the rendered target depth, the flat Gaussians and
+the lift's `weight_gap` and `src_rmse` (`MVSDet.predict`), and
+`evaluate_scenes` adds `depth_rmse` (rendered target depth against
+`gt_depth`) and the means of `weight_gap` and `src_rmse` to its metrics;
+its ``vis_hook`` sees each scene's host prediction in order
+(`tools/test.py --vis-dir`).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ from __future__ import annotations
 import itertools
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, Iterable, List
+from typing import Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -32,10 +34,11 @@ from mvsdet_torch.models.mvsdet import MVSDet
 from mvsdet_torch.parallel.mesh import Mesh
 
 
-def make_predict_fn(model: MVSDet, device="cuda"
+def make_predict_fn(model: MVSDet, device="cuda", diagnostics: bool = False
                     ) -> Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]:
     """fn(host numpy batch) -> host numpy prediction dict, for `MVSDet` or
     `NerfDetLegacy` (whose prediction has no rendered view and no depth).
+    ``diagnostics`` asks `MVSDet.predict` for its diagnostics too.
 
     The model is moved to ``device``, which is the card unless the caller
     asks for the CPU (raises when CUDA is missing).  Each batch is copied
@@ -52,25 +55,28 @@ def make_predict_fn(model: MVSDet, device="cuda"
     model.to(device)
 
     def predict(batch: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
-        return {k: v.cpu().numpy()
-                for k, v in _predict_tensors(model, batch, device).items()}
+        return {k: v.cpu().numpy() for k, v in _predict_tensors(
+            model, batch, device, diagnostics).items()}
 
     return predict
 
 
-def _predict_tensors(model: MVSDet, batch: Dict, device
-                     ) -> Dict[str, torch.Tensor]:
+def _predict_tensors(model: MVSDet, batch: Dict, device,
+                     diagnostics: bool = False) -> Dict[str, torch.Tensor]:
     """The model's prediction of one batch as device tensors, bf16 scores
     widened to float32."""
     tensors = {k: torch.as_tensor(v).to(device, non_blocking=True)
                for k, v in batch.items()}
     with torch.inference_mode():
-        out = model.predict(tensors)
+        # NerfDetLegacy.predict has no diagnostics to ask for
+        out = (model.predict(tensors, diagnostics=True) if diagnostics
+               else model.predict(tensors))
     return {k: v.to(torch.float32) if v.dtype == torch.bfloat16 else v
             for k, v in out.items()}
 
 
-def make_sharded_predict_fn(model: MVSDet, mesh: Mesh, device="cuda"
+def make_sharded_predict_fn(model: MVSDet, mesh: Mesh, device="cuda",
+                            diagnostics: bool = False
                             ) -> Callable[[List[Dict]], Dict[str, np.ndarray]]:
     """fn(group) -> the group's host predictions, stacked on a leading
     axis, for a group of ``mesh.data`` scenes (the data-parallel predict
@@ -79,8 +85,9 @@ def make_sharded_predict_fn(model: MVSDet, mesh: Mesh, device="cuda"
 
     Rank d of the data group predicts scene ``group[d]`` (taken as it is
     where it is staged on ``device`` already), as `make_predict_fn`
-    would; its fixed-shape outputs (boxes, scores, labels, mask, rendered,
-    depth_expect) go as one float32 buffer through an all-gather over the
+    would (with its ``diagnostics``); its fixed-shape outputs (boxes,
+    scores, labels, mask, rendered, depth_expect, and the diagnostics)
+    go as one float32 buffer through an all-gather over the
     data group, so every rank returns the whole group's.  The function's
     ``data_index`` tells `evaluate_scenes` which scene of a group to
     stage.  Every rank of the group must call it on every group.
@@ -96,7 +103,8 @@ def make_sharded_predict_fn(model: MVSDet, mesh: Mesh, device="cuda"
         if len(scenes) != mesh.data:
             raise ValueError(f"a group of {mesh.data} scenes, not "
                              f"{len(scenes)}")
-        out = _predict_tensors(model, scenes[mesh.data_index], device)
+        out = _predict_tensors(model, scenes[mesh.data_index], device,
+                               diagnostics)
         keys = sorted(out)
         flat = torch.cat([out[k].to(torch.float32).reshape(-1)
                           for k in keys])
@@ -117,7 +125,9 @@ def make_sharded_predict_fn(model: MVSDet, mesh: Mesh, device="cuda"
 
 def evaluate_scenes(predict_fn: Callable, scenes: Iterable[Dict],
                     num_classes: int, device=None,
-                    group_size: int = 1) -> Dict[str, float]:
+                    group_size: int = 1,
+                    vis_hook: Optional[Callable[[int, Dict, Dict], None]]
+                    = None) -> Dict[str, float]:
     """Run predict over host scene batches and aggregate the metrics.
 
     Args:
@@ -136,11 +146,16 @@ def evaluate_scenes(predict_fn: Callable, scenes: Iterable[Dict],
         The final group is padded by repeating its last scene and the
         padding's outputs dropped (mvsdet_tpu harness.py:117-118), so the
         metrics equal ``group_size=1``'s.
+      vis_hook: fn(scene_index, host scene, host prediction), called for
+        each scene in order after its prediction reaches the host
+        (`tools/test.py --vis-dir`).
 
     Returns the JAX harness's metric dict: mAP_0.25 / mAP_0.50 (and mAR,
     per-class APs); psnr / ssim where scenes carry `gt_images` and the
-    prediction `rendered`; mvs_rmse where they carry `depth` and the
-    prediction `depth_expect`; predict_s_first and, past the first scene,
+    prediction `rendered`; depth_rmse where they carry `gt_depth` and the
+    prediction `rendered_depth`; mvs_rmse where they carry `depth` and the
+    prediction `depth_expect`; weight_gap / src_rmse (their means) where
+    the predictions carry them; predict_s_first and, past the first scene,
     predict_s_per_scene (seconds, host clock; the outputs' copy to the
     host ends each predict; in a group, the group's time over its
     scenes, and the first group's scenes all count as first).
@@ -183,9 +198,9 @@ def evaluate_scenes(predict_fn: Callable, scenes: Iterable[Dict],
                     yield scene, out_np
 
     preds, gts = [], []
-    psnrs, ssims, mvs_rmses = [], [], []
+    psnrs, ssims, d_rmses, mvs_rmses, wgaps, srmses = [], [], [], [], [], []
     predict_times = []
-    for scene, out_np in predictions():
+    for si, (scene, out_np) in enumerate(predictions()):
         mask = out_np["mask"]
         preds.append({"boxes": out_np["boxes"][mask],
                       "scores": out_np["scores"][mask],
@@ -199,19 +214,33 @@ def evaluate_scenes(predict_fn: Callable, scenes: Iterable[Dict],
                 g = np.asarray(scene["gt_images"][t])
                 psnrs.append(psnr(r, g))
                 ssims.append(ssim(r, g))
+        if "rendered_depth" in out_np and "gt_depth" in scene:
+            for t in range(out_np["rendered_depth"].shape[0]):
+                d_rmses.append(depth_rmse(out_np["rendered_depth"][t],
+                                          np.asarray(scene["gt_depth"][t])))
         if "depth" in scene and "depth_expect" in out_np:
             # MVSMetric: source depth expectation vs GT at feature res
             est = out_np["depth_expect"]                        # (N, h, w)
             gt = np.asarray(scene["depth"], np.float64)
             mvs_rmses.append(depth_rmse(
                 est, _resize_nearest(gt, est.shape[1:3])))
+        if "weight_gap" in out_np:
+            wgaps.append(float(out_np["weight_gap"]))
+            srmses.append(float(out_np["src_rmse"]))
+        if vis_hook is not None:
+            vis_hook(si, scene, out_np)
 
     results = indoor_map(preds, gts, num_classes=num_classes)
     if psnrs:
         results["psnr"] = float(np.mean(psnrs))
         results["ssim"] = float(np.mean(ssims))
+    if d_rmses:
+        results["depth_rmse"] = float(np.mean(d_rmses))
     if mvs_rmses:
         results["mvs_rmse"] = float(np.mean(mvs_rmses))
+    if wgaps:
+        results["weight_gap"] = float(np.mean(wgaps))
+        results["src_rmse"] = float(np.mean(srmses))
     if predict_times:
         # the first group pays the warm-up; steady state is the rest
         results["predict_s_first"] = predict_times[0]

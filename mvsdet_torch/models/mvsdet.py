@@ -9,7 +9,8 @@
     -> depth-weighted voxel lift (CUDA gather kernel on the card)
     -> IndoorImVoxelNeck -> DetectionHead -> NMS
   and the Gaussian branch: top-3 source views per render target ->
-  per-pixel Gaussians -> tile splatting (CUDA compositor on the card).
+  per-pixel Gaussians -> tile splatting (CUDA compositor on the card), or
+  with `splat_impl != "tiled"` the exact dense renderer (plain torch).
 
 `forward(batch, train)` is `MVSDet.__call__`; `loss` adds the head
 losses, the novel-view MSE and the optional depth L1.  ScanNet's shared
@@ -61,9 +62,13 @@ from mvsdet_torch.models.neck3d import IndoorImVoxelNeck
 from mvsdet_torch.models.resnet import ResNet50
 from mvsdet_torch.ops.plane_sweep import plane_sweep_variance_for_refs
 from mvsdet_torch.ops.sampling import bilinear_resize, linear_resize
+from mvsdet_torch.ops.splat import render_view
 from mvsdet_torch.ops.splat_tiles import render_views_tiled
-from mvsdet_torch.ops.voxel_lift import finalize_volume, lift_features_to_voxels
+from mvsdet_torch.ops.voxel_lift import (finalize_volume,
+                                         lift_diagnostics,
+                                         lift_features_to_voxels)
 from mvsdet_torch.parallel.collectives import all_gather_views, psum
+from mvsdet_torch.utils.precision import feinsum
 
 
 DEPTH_SUPERVISION_SHARDED = (
@@ -92,9 +97,6 @@ class MVSDet(nn.Module):
                  sweep_remat: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.gs.splat_impl != "tiled":
-            raise NotImplementedError("only the tiled splatting path is "
-                                      "ported")
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype float32 or bfloat16, not "
                              f"{dtype}")
@@ -338,22 +340,56 @@ class MVSDet(nn.Module):
                     depth_expect=depth_expect, gaussians=gaussians, prob=prob,
                     proj44=proj44)
 
-    def render_targets(self, gaussians: Gaussians, batch, image_shape):
-        """Splat the scene Gaussians into every render target view, with
-        one shared target K or one per target (ARKit, mvsdet.py:645-658)."""
+    def _target_intrinsics(self, batch, image_shape) -> torch.Tensor:
+        """(T, 3, 3) target Ks normalised by the image size, from one
+        shared K or one per target (ARKit, mvsdet.py:645-658)."""
         ht, wt = image_shape
         n_tgt = batch["tgt_c2w"].shape[0]
         tgt_k = batch["tgt_intrinsic"]
         norm = torch.tensor([[wt], [ht], [1.0]], dtype=torch.float32,
                             device=tgt_k.device)
-        ks = (tgt_k[:3, :3] / norm).expand(n_tgt, 3, 3) if tgt_k.ndim == 2 \
+        return (tgt_k[:3, :3] / norm).expand(n_tgt, 3, 3) if tgt_k.ndim == 2 \
             else tgt_k[:, :3, :3] / norm
+
+    def render_targets(self, gaussians: Gaussians, batch, image_shape):
+        """Splat the scene Gaussians into every render target view: all
+        targets in one compositor launch, or one view at a time through
+        the dense renderer with `splat_impl != "tiled"`."""
+        ks = self._target_intrinsics(batch, image_shape)
         bg = torch.tensor(self.cfg.gs.background_color, dtype=torch.float32,
-                          device=tgt_k.device)
-        return render_views_tiled(
-            gaussians.means, gaussians.covariances, gaussians.harmonics,
-            gaussians.opacities, batch["tgt_c2w"], ks, image_shape,
-            background=bg, capacity=self.cfg.gs.splat_capacity)
+                          device=ks.device)
+        g = gaussians
+        if self.cfg.gs.splat_impl == "tiled":
+            return render_views_tiled(
+                g.means, g.covariances, g.harmonics, g.opacities,
+                batch["tgt_c2w"], ks, image_shape, background=bg,
+                capacity=self.cfg.gs.splat_capacity)
+        return torch.stack([
+            render_view(g.means, g.covariances, g.harmonics, g.opacities,
+                        c2w, k, image_shape, background=bg)
+            for c2w, k in zip(batch["tgt_c2w"], ks)])        # (T, H, W, 3)
+
+    def render_target_depth(self, gaussians: Gaussians, batch, image_shape):
+        """Each Gaussian's camera z composited into every target view,
+        background 0 (mvsdet_tpu/models/mvsdet.py:396-437; the reference's
+        render_depth, consumed by GaussianDepthMetric): the same alpha
+        blending as the colour with one channel, so the tiled path runs the
+        compositor at C = 1.  Returns (T, H, W) float32."""
+        ks = self._target_intrinsics(batch, image_shape)
+        w2cs = torch.linalg.inv_ex(batch["tgt_c2w"]).inverse  # (T, 4, 4)
+        g = gaussians
+        z = (feinsum("gi,ti->tg", g.means, w2cs[:, 2, :3])
+             + w2cs[:, 2, 3][:, None])[..., None]             # (T, G, 1)
+        if self.cfg.gs.splat_impl == "tiled":
+            return render_views_tiled(
+                g.means, g.covariances, g.harmonics, g.opacities,
+                batch["tgt_c2w"], ks, image_shape,
+                capacity=self.cfg.gs.splat_capacity,
+                values_override=z)[..., 0]
+        return torch.stack([
+            render_view(g.means, g.covariances, g.harmonics, g.opacities,
+                        c2w, k, image_shape, value_override=zt)[..., 0]
+            for c2w, k, zt in zip(batch["tgt_c2w"], ks, z)])
 
     def _head_points_and_valid(self, valid_count, origin):
         mc = self.cfg
@@ -420,9 +456,19 @@ class MVSDet(nn.Module):
         return total, aux
 
     @torch.no_grad()
-    def predict(self, batch: Dict[str, torch.Tensor]) -> Dict:
+    def predict(self, batch: Dict[str, torch.Tensor],
+                diagnostics: bool = False) -> Dict:
         """NMS'd boxes, rendered target views and the depth expectation
-        (`MVSDet.predict(diagnostics=False)`, mvsdet.py:500-547)."""
+        (`MVSDet.predict`, mvsdet.py:500-547).
+
+        With ``diagnostics``, also: where the scene has Gaussians,
+        `rendered_depth` (T, Ht, Wt), the splatted target depth, at the
+        size of ``gt_images`` or else ``target_size``, and the flat
+        Gaussians `gs_means`, `gs_covariances`, `gs_harmonics` and
+        `gs_opacities` (for the PLY export); where the batch holds the
+        source views' GT `depth`, `weight_gap` and `src_rmse`
+        (`lift_diagnostics`, GT resized to the feature grid).
+        """
         result = self(batch)
         predict_fn = (head_predict_rotated if self.cfg.head.with_yaw
                       else head_predict)
@@ -431,6 +477,26 @@ class MVSDet(nn.Module):
         if "rendered" in result:
             pred["rendered"] = result["rendered"]
         pred["depth_expect"] = result["depth_expect"]
+        if diagnostics and result["gaussians"] is not None:
+            image_shape = (tuple(batch["gt_images"].shape[1:3])
+                           if "gt_images" in batch else self.cfg.target_size)
+            g = result["gaussians"]
+            pred["rendered_depth"] = self.render_target_depth(g, batch,
+                                                              image_shape)
+            pred["gs_means"] = g.means
+            pred["gs_covariances"] = g.covariances
+            pred["gs_harmonics"] = g.harmonics
+            pred["gs_opacities"] = g.opacities
+        if diagnostics and "depth" in batch:
+            est = result["depth_expect"]
+            gt_feat = bilinear_resize(batch["depth"][..., None],
+                                      tuple(est.shape[1:3]))[..., 0]
+            points = voxel_points(self.cfg.n_voxels, self.cfg.voxel_size,
+                                  batch["origin"]).reshape(3, -1).T
+            pred["weight_gap"], pred["src_rmse"] = lift_diagnostics(
+                result["proj44"][:, :3, :4], result["est_depth"],
+                result["est_prob"], points, self.cfg.voxel_size[2], gt_feat,
+                est)
         return pred
 
 

@@ -5,14 +5,17 @@ mvsdet.py:438-467, mvs_models/module.py:105-146).  The JAX package's fast
 TPU path, the shear-matmul warp of `plane_sweep_mxu.py`, is a TPU
 discretisation and is not ported; this bilinear gather is the JAX
 package's own oracle.  Layout is channels-last (M, D, H, W, C) at the
-public function, as in the JAX package.
+public function, as in the JAX package.  `MVSDet` sweeps a chunk of
+reference views at a time (`plane_sweep_variance_for_refs`);
+`plane_sweep_variance` sweeps every view and `homography_warp` warps one
+(ref, source) pair.
 """
 
 from __future__ import annotations
 
 import torch
 
-from mvsdet_torch.ops.sampling import bilinear_sample
+from mvsdet_torch.ops.sampling import bilinear_sample, torch_grid_sample_skew
 from mvsdet_torch.utils.precision import feinsum
 
 
@@ -43,6 +46,48 @@ def homography_coords(rel_proj: torch.Tensor, depth_values: torch.Tensor,
     # guard only an exact zero (the huge coordinates then sample zeros)
     z_safe = torch.where(z.abs() < 1e-9, 1e-9, z)
     return proj[..., :2] / z_safe
+
+
+def homography_warp(src_feat: torch.Tensor, rel_proj: torch.Tensor,
+                    depth_values: torch.Tensor,
+                    torch_compat: bool = False) -> torch.Tensor:
+    """Warp one source feature map onto the ref view's depth planes
+    (`homo_warping`, module.py:105-146, for one pair).
+
+    Args:
+      src_feat: (H, W, C) source-view features.
+      rel_proj: (4, 4) src_proj @ inv(ref_proj).
+      depth_values: (D,).
+      torch_compat: sample where the reference's `grid_sample` taps
+        (`torch_grid_sample_skew`); default the intended coordinates.
+
+    Returns:
+      (D, H, W, C), zeros outside the source image.
+    """
+    h, w, _ = src_feat.shape
+    coords = homography_coords(rel_proj, depth_values, h, w)
+    if torch_compat:
+        coords = torch_grid_sample_skew(coords, h, w)
+    return bilinear_sample(src_feat[None], coords[None])[0]
+
+
+def plane_sweep_variance(features: torch.Tensor, proj: torch.Tensor,
+                         neighbor_ids: torch.Tensor,
+                         depth_values: torch.Tensor) -> torch.Tensor:
+    """Variance volumes over {ref, k neighbours} for every view
+    (mvsdet.py:438-467): `plane_sweep_variance_for_refs` with every view
+    its own reference.
+
+    Args:
+      features: (N, H, W, C); proj: (N, 4, 4) full projections at feature
+      resolution; neighbor_ids: (N, k); depth_values: (D,).
+
+    Returns:
+      (N, D, H, W, C).
+    """
+    ref_ids = torch.arange(features.shape[0], device=features.device)
+    return plane_sweep_variance_for_refs(features, proj, ref_ids,
+                                         neighbor_ids, depth_values)
 
 
 def plane_sweep_variance_for_refs(features: torch.Tensor, proj: torch.Tensor,

@@ -19,6 +19,27 @@ import torch
 from mvsdet_torch.utils.precision import feinsum
 
 
+def torch_grid_sample_skew(coords: torch.Tensor, height: int,
+                           width: int) -> torch.Tensor:
+    """Map intended pixel coordinates to the ones the reference's
+    `grid_sample` taps (mvsdet_tpu/ops/sampling.py:22-45).
+
+    The reference normalises by (size - 1) / 2 (align_corners=True,
+    module.py:137-138) but samples with align_corners=False, so a
+    coordinate p is fetched at p * size / (size - 1) - 0.5.  Only the
+    torch-golden parity of `homography_warp(torch_compat=True)` uses it.
+
+    Args:
+      coords: (..., 2) intended (x, y) pixel coordinates.
+
+    Returns:
+      (..., 2) the coordinates `grid_sample` effectively taps.
+    """
+    x = coords[..., 0] * (width / (width - 1)) - 0.5
+    y = coords[..., 1] * (height / (height - 1)) - 0.5
+    return torch.stack([x, y], dim=-1)
+
+
 def bilinear_sample(image: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Bilinearly sample channels-last images at pixel coordinates.
 

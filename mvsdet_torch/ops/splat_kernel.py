@@ -19,7 +19,8 @@ the CPU tests: `cull_boxes_reference` (the boxes),
 `segment_partials_reference` and `combine_segments_reference` (the
 forward's two passes), `segment_states_reference` and
 `composite_tiles_bwd_segmented_reference` (the backward's start states and
-its walk from them).
+its walk from them).  Each wrapper counts its kernel launches in
+`launches`; `composite_tiles.c1_launches` counts those with one channel.
 """
 
 from __future__ import annotations
@@ -290,6 +291,8 @@ def _forward(data: torch.Tensor, vals: torch.Tensor,
         raise RuntimeError(f"composite_tiles kernel launch failed: "
                            f"cudaError {err}")
     composite_tiles.launches += 1
+    if c == 1:
+        composite_tiles.c1_launches += 1
     return out
 
 
@@ -370,6 +373,8 @@ def composite_tiles(data: torch.Tensor, vals: torch.Tensor,
 
 
 composite_tiles.launches = 0
+# the one-channel launches among them (the predict's rendered depth)
+composite_tiles.c1_launches = 0
 composite_tiles_bwd.launches = 0
 
 

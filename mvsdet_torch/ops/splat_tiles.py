@@ -3,7 +3,12 @@
 Project -> compute splat radii -> bin gaussians into 16x16 pixel tiles
 with a fixed per-tile capacity (the nearest `capacity` splats, after one
 global depth sort) -> composite every tile of every target view in one
-`composite_tiles` launch, on a canvas of the views stacked vertically.
+`composite_tiles` launch, on a canvas of the views stacked vertically
+(`render_views_tiled`; `render_view_tiled` renders one view).  A
+Gaussian reaches only the tiles its 3-sigma radius meets, as in the CUDA
+rasterizer, so the dense `ops/splat.py` `render_view` differs by the
+tails past 3 sigma that still clear the alpha cutoff (opacity above
+~0.35), and by what overflows a tile's capacity.
 """
 
 from __future__ import annotations
@@ -165,3 +170,23 @@ def render_views_tiled(means, covariances, harmonics, opacities, c2ws,
         _assemble_tiles(out[t], tiles_y, tiles_x, n_ch, h, w, background)
         for t in range(t_views)
     ])
+
+
+def render_view_tiled(means, covariances, harmonics, opacities, c2w,
+                      intrinsics_norm, image_shape,
+                      background: Optional[torch.Tensor] = None,
+                      capacity: int = 1024, near_clip: float = 0.2,
+                      value_override: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """One view through one compositor launch, (H, W, C): the tiled twin
+    of `ops/splat.py` `render_view` (mvsdet_tpu/ops/splat_tiles.py:149-175).
+
+    Args:
+      c2w: (4, 4); intrinsics_norm: (3, 3) normalised K.
+      value_override: optional (G, C) composited values; default the SH
+        colour, C = 3.
+    """
+    return render_views_tiled(
+        means, covariances, harmonics, opacities, c2w[None],
+        intrinsics_norm[None], image_shape, background, capacity, near_clip,
+        None if value_override is None else value_override[None])[0]

@@ -15,6 +15,8 @@ plain PyTorch over all views at once; the (V, C) feature gather goes
 through `weighted_gather_sum`, the CUDA kernel on the card.  The lift
 returns float32, the accumulator's type (ROADMAP trap T6), for float32
 and bf16 features alike, and d-feat in the features' dtype.
+`lift_diagnostics` grades the same weights against GT depth (the
+predict's diagnostics).
 """
 
 from __future__ import annotations
@@ -41,6 +43,13 @@ def _pixel_weights(projections: torch.Tensor, est_depth: torch.Tensor,
       weight: (N, V) max in-window hypothesis probability (0 if invalid).
       valid: (N, V) bool.
     """
+    pix, weight, valid, _, _ = _window_weights(
+        projections, est_depth, prob_norm, points, voxel_size_z)
+    return pix, weight, valid
+
+
+def _window_weights(projections, est_depth, prob_norm, points, voxel_size_z):
+    """`_pixel_weights`, and each voxel's camera z and in-frustum bit."""
     n, h, w, k = est_depth.shape
     homo = torch.cat([points, torch.ones_like(points[:, :1])], dim=-1)
     p = feinsum("nij,vj->nvi", projections, homo)             # (N, V, 3)
@@ -60,7 +69,7 @@ def _pixel_weights(projections: torch.Tensor, est_depth: torch.Tensor,
         & (zz < d_k + voxel_size_z)                           # (N, V, K)
     valid = window.any(dim=2)
     weight = torch.where(window, p_k, 0.0).amax(dim=2)
-    return pix, weight, valid
+    return pix, weight, valid, z, valid0
 
 
 def lift_features_to_voxels(features: torch.Tensor, projections: torch.Tensor,
@@ -95,3 +104,41 @@ def finalize_volume(volume_sum: torch.Tensor,
     """View-mean with empty voxels zeroed (mvsdet.py:511-515, 681-682)."""
     mean = volume_sum / (valid_count[:, None] + 1e-8)
     return torch.where(valid_count[:, None] > 0, mean, 0.0)
+
+
+def lift_diagnostics(projections: torch.Tensor, est_depth: torch.Tensor,
+                     est_prob: torch.Tensor, points: torch.Tensor,
+                     voxel_size_z: float, gt_depth: torch.Tensor,
+                     depth_expect: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """GT-depth-assisted lift diagnostics (mvsdet_tpu/ops/voxel_lift.py:
+    198-258; the reference's debug branch, mvsdet.py:1436-1492).
+
+    Per view, every in-frustum voxel gets a GT-validity bit: its camera z
+    lies within one ``voxel_size_z`` of the GT depth at its pixel.  The
+    view's gap is the in-frustum mean of (bit - lifted weight)^2, and
+    `weight_gap` the mean over views.  `src_rmse` is the masked MSE of
+    ``depth_expect`` against GT over pixels with GT > 0 (an MSE despite
+    the name, as the reference computes it, :1446-1448).
+
+    Args:
+      projections: (N, 3, 4); est_depth, est_prob: (N, H, W, K);
+      points: (V, 3); gt_depth: (N, H, W) at feature resolution (0 =
+      invalid); depth_expect: (N, H, W).
+
+    Returns:
+      (weight_gap, src_rmse), float32 scalars.
+    """
+    n, h, w = gt_depth.shape
+    prob_norm = est_prob / (est_prob.sum(dim=-1, keepdim=True) + 1e-12)
+    pix, weight, _, z, valid0 = _window_weights(
+        projections, est_depth, prob_norm, points, voxel_size_z)
+    gt_z = torch.gather(gt_depth.reshape(n, h * w), 1, pix.long())
+    gt_valid = (valid0 & (z > gt_z - voxel_size_z)
+                & (z < gt_z + voxel_size_z)).to(torch.float32)
+    gaps = (torch.where(valid0, (gt_valid - weight) ** 2, 0.0).sum(dim=1)
+            / valid0.sum(dim=1).clamp_min(1))
+    mask = gt_depth > 0
+    src_rmse = (torch.where(mask, (depth_expect - gt_depth) ** 2, 0.0).sum()
+                / mask.sum().clamp_min(1))
+    return gaps.mean(), src_rmse

@@ -4,6 +4,8 @@
         --data-root data/scannet --checkpoint work_dirs/mvsdet_torch/best
     python -m mvsdet_torch.tools.test --synthetic 4 --arkit --dtype bfloat16
     python -m mvsdet_torch.tools.test --synthetic 2 --device cpu
+    python -m mvsdet_torch.tools.test --synthetic 3 --diagnostics \
+        --vis-dir out/vis
     torchrun --standalone --nproc_per_node 2 -m mvsdet_torch.tools.test \
         --synthetic 4 --data-parallel 2
 
@@ -19,8 +21,14 @@ its D processes (`make_sharded_predict_fn`, the reference's
 `tools/dist_test.sh`), with the metrics of one process; rank 0 prints
 them.
 
-Not accepted yet: `--diagnostics` and `--vis-dir`, which wait for the
-port's diagnostics.
+`--diagnostics` adds the predict's diagnostics: depth_rmse of the
+rendered target depth against GT, and the lift's weight_gap and
+src_rmse.  `--vis-dir DIR` implies them and writes, per scene, into
+DIR/sceneNNNN (rank 0 alone under torchrun): the predicted (green) and GT
+(red) boxes projected on the first three source views, the rendered and
+GT target views, the colourised rendered depth and source-view depth
+expectations, and the Gaussians as a 3DGS .ply (the reference's
+`vis_dir`, mvsdet.py:976-982).
 """
 
 from __future__ import annotations
@@ -45,6 +53,9 @@ from mvsdet_torch.evaluation.harness import (evaluate_scenes,
                                              make_sharded_predict_fn)
 from mvsdet_torch.parallel import multihost
 from mvsdet_torch.training.loop import create_predict_state
+from mvsdet_torch.utils.box_vis import overlay_detections
+from mvsdet_torch.utils.imageio import colorize_depth, write_png
+from mvsdet_torch.utils.ply_export import export_ply
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -71,6 +82,11 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="scene i's view sampler is seeded with seed + i")
     p.add_argument("--load-depth", action="store_true",
                    help="load GT depth for the mvs_rmse metric")
+    p.add_argument("--diagnostics", action="store_true",
+                   help="rendered depth + weight_gap/src_rmse metrics")
+    p.add_argument("--vis-dir", default=None,
+                   help="dump rendered/GT/depth images + gaussian .ply "
+                        "(implies --diagnostics)")
     p.add_argument("--data-parallel", type=int, default=1,
                    help="scenes predicted at a time, one per process "
                         "(under torchrun)")
@@ -78,7 +94,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="'cuda' (the default; raises without a card; "
                         "under torchrun the card LOCAL_RANK names) or "
                         "'cpu'")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    # the images need the diagnostics' outputs (tools/test.py:153)
+    args.diagnostics = args.diagnostics or bool(args.vis_dir)
+    return args
 
 
 def preset(args: argparse.Namespace) -> Config:
@@ -107,6 +126,53 @@ def scenes(cfg: Config, args: argparse.Namespace) -> Iterator[Dict]:
         yield pipeline(info, np.random.RandomState(args.seed + i))
 
 
+def make_vis_hook(vis_dir: str, cfg: Config):
+    """fn(scene_index, scene, prediction) writing the scene's images and
+    Gaussians into ``vis_dir``/sceneNNNN (tools/test.py:58-101)."""
+    os.makedirs(vis_dir, exist_ok=True)
+
+    def hook(si, scene, out):
+        d = os.path.join(vis_dir, f"scene{si:04d}")
+        os.makedirs(d, exist_ok=True)
+        if "boxes" in out:
+            # predictions green, GT red, on the first few source views
+            mask = out["mask"]
+            gmask = np.asarray(scene["gt_mask"])
+            k = np.asarray(scene["intrinsic"])
+            for i in range(min(3, scene["images"].shape[0])):
+                k_i = k if k.ndim == 2 else k[i]
+                img = overlay_detections(
+                    np.asarray(scene["denorm_images"][i]),
+                    np.asarray(scene["w2c"][i]), k_i,
+                    out["boxes"][mask], out["scores"][mask],
+                    np.asarray(scene["gt_boxes"])[gmask])
+                write_png(os.path.join(d, f"boxes_{i}.png"), img)
+        if "rendered" in out:
+            for t in range(out["rendered"].shape[0]):
+                write_png(os.path.join(d, f"render_{t}.png"),
+                          out["rendered"][t])
+                write_png(os.path.join(d, f"gt_{t}.png"),
+                          np.asarray(scene["gt_images"][t]))
+        if "rendered_depth" in out:
+            for t in range(out["rendered_depth"].shape[0]):
+                write_png(os.path.join(d, f"render_depth_{t}.png"),
+                          colorize_depth(out["rendered_depth"][t]))
+        if "depth_expect" in out:
+            # a few source-view depth maps (the reference's save_src_depth
+            # picks 3)
+            for i in range(min(3, out["depth_expect"].shape[0])):
+                write_png(os.path.join(d, f"src_depth_{i}.png"),
+                          colorize_depth(out["depth_expect"][i]))
+        if "gs_means" in out:
+            n = export_ply(os.path.join(d, "gaussians.ply"),
+                           out["gs_means"], out["gs_covariances"],
+                           out["gs_harmonics"], out["gs_opacities"],
+                           min_opacity=0.01)
+            print(f"scene{si:04d}: wrote {n} gaussians", flush=True)
+
+    return hook
+
+
 def evaluate(cfg: Config, args: argparse.Namespace) -> Dict[str, float]:
     """The metric dict of the evaluation ``args`` ask for, with ``cfg``;
     in a process group (`main` under torchrun) its `--data-parallel`
@@ -126,12 +192,17 @@ def evaluate(cfg: Config, args: argparse.Namespace) -> Dict[str, float]:
                                  sweep_chunk=args.sweep_chunk)
     if dist.is_initialized():
         mesh = multihost.make_global_mesh(args.data_parallel, 1)
-        predict = make_sharded_predict_fn(model, mesh, device)
+        predict = make_sharded_predict_fn(model, mesh, device,
+                                          args.diagnostics)
     else:
-        predict = make_predict_fn(model, device)
+        predict = make_predict_fn(model, device, args.diagnostics)
+    # every rank holds every scene's prediction; rank 0 writes them
+    vis_hook = (make_vis_hook(args.vis_dir, cfg)
+                if args.vis_dir and (not dist.is_initialized()
+                                     or dist.get_rank() == 0) else None)
     return evaluate_scenes(predict, scenes(cfg, args),
                            cfg.model.head.n_classes, device=device,
-                           group_size=args.data_parallel)
+                           group_size=args.data_parallel, vis_hook=vis_hook)
 
 
 def main(argv=None) -> Dict[str, float]:

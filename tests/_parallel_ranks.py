@@ -170,10 +170,12 @@ def train(rank, out, data, view, cfg, weights, scenes):
           **{f"metric/{k}": v for k, v in logged[0].items()}, **arrays)
 
 
-def predict(rank, out, cfg, weights, scenes, group_size):
-    """`evaluate_scenes` with `make_sharded_predict_fn` over a data group of
-    every rank, ``group_size`` scenes a call, on the npz ``scenes``: the
-    metrics and each scene's predictions."""
+def predict(rank, out, cfg, weights, scenes, group_size,
+            diagnostics=False):
+    """`evaluate_scenes` with `make_sharded_predict_fn` (with its
+    ``diagnostics``) over a data group of every rank, ``group_size`` scenes
+    a call, on the npz ``scenes``: the metrics and each scene's
+    predictions."""
     from mvsdet_torch.evaluation.harness import (evaluate_scenes,
                                                  make_sharded_predict_fn)
     from mvsdet_torch.models.mvsdet import build_model
@@ -186,7 +188,7 @@ def predict(rank, out, cfg, weights, scenes, group_size):
         count = len({k.split("/")[0] for k in f.files})
         batches = [{k.split("/", 1)[1]: f[k] for k in f.files
                     if k.startswith(f"{i}/")} for i in range(count)]
-    fn = make_sharded_predict_fn(model, mesh, "cpu")
+    fn = make_sharded_predict_fn(model, mesh, "cpu", diagnostics)
     groups = []
 
     def recording(group):

@@ -49,7 +49,14 @@ M16_MODULES = (
     "mvsdet_torch.ops.ray_render", "mvsdet_torch.training.loop")
 # the learning check, named for the same reason
 M18_MODULES = ("mvsdet_torch.tools.overfit_map", "mvsdet_torch.models.flax_init")
-NAMED_MODULES = M13_MODULES + M15_MODULES + M16_MODULES + M18_MODULES
+# the diagnostics and the last modules, named for the same reason
+M17_MODULES = (
+    "mvsdet_torch.utils.imageio", "mvsdet_torch.utils.box_vis",
+    "mvsdet_torch.utils.ply_export", "mvsdet_torch.utils.profiling",
+    "mvsdet_torch.ops.splat", "mvsdet_torch.ops.voxel_lift",
+    "mvsdet_torch.tools.overfit_spread")
+NAMED_MODULES = (M13_MODULES + M15_MODULES + M16_MODULES + M18_MODULES
+                 + M17_MODULES)
 
 
 def _leaf(path, shape, rng):

@@ -18,7 +18,9 @@ launchers on the CPU, held against the JAX package.
 - `train --model nerfdet`: its steps, evaluations and checkpoints, a
   resumed run drawing the rays of an unbroken one, and a step in bf16.
 - The launchers run on the card unless `--device cpu` is given, and
-  refuse the options that wait for later parts of the port.
+  refuse the options that wait for later parts of the port; the test
+  launcher takes `--diagnostics`, and `--vis-dir` implies it
+  (`tests/test_torch_port_diagnostics.py` runs them).
 """
 
 import dataclasses
@@ -398,12 +400,21 @@ def test_launchers_need_the_card_unless_cpu_is_asked(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("launcher,flags", [
-    (train_launcher, ["--model", "nerfdet", "--data-parallel", "2"]),
-    (test_launcher, ["--diagnostics"]),
-    (test_launcher, ["--vis-dir", "out"])])
+    (train_launcher, ["--model", "nerfdet", "--data-parallel", "2"])])
 def test_launchers_refuse_what_waits_for_later_slices(launcher, flags):
     with pytest.raises(SystemExit):
         launcher.parse_args(flags)
+
+
+@pytest.mark.parametrize("flags,diagnostics,vis_dir", [
+    ([], False, None),
+    (["--diagnostics"], True, None),
+    (["--vis-dir", "out"], True, "out")])
+def test_test_launcher_takes_the_diagnostics_flags(flags, diagnostics,
+                                                   vis_dir):
+    """`--vis-dir` implies the diagnostics, as tools/test.py:153 has it."""
+    args = test_launcher.parse_args(flags)
+    assert args.diagnostics is diagnostics and args.vis_dir == vis_dir
 
 
 @pytest.mark.parametrize("launcher,flags", [

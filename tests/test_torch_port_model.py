@@ -3,7 +3,15 @@
 Both run the same synthetic scene with the same weights (a numpy-seeded
 JAX tree carried across by the bridge) at tiny shapes and narrow widths:
 rendered to 1e-4, depth expectation to 1e-5, kept boxes, scores and
-labels equal under `mask` (ROADMAP trap T9).
+labels equal under `mask` (ROADMAP trap T9).  The predict runs with its
+diagnostics on both sides (in the one JAX jit): the rendered target depth
+to 1e-4, `weight_gap` and `src_rmse` to 1e-5 relative, the flat Gaussians
+to 1e-5; `lift_diagnostics` alone is held on the JAX tests' own inputs.
+The bf16 diagnostics are held on the card, the kernels against their
+plain versions, not against JAX's bf16: the depth compositor takes
+float32 tables in either dtype, and `tests/test_torch_port_bf16.py`
+already holds the bf16 `est_prob` and `est_depth` the lift's diagnostics
+read.
 """
 
 import numpy as np
@@ -13,11 +21,14 @@ import jax
 import jax.numpy as jnp
 import torch
 
+import test_eval_harness
+
 from mvsdet_tpu.config import tiny_test_config
 from mvsdet_tpu.data.synthetic import make_synthetic_scene
 from mvsdet_tpu.models.head import head_predict as jx_head_predict
 from mvsdet_tpu.models.mvsdet import MVSDet as JxMVSDet
 from mvsdet_tpu.ops import nms as jx_nms
+from mvsdet_tpu.ops.voxel_lift import lift_diagnostics as jx_lift_diagnostics
 
 from mvsdet_torch import config as port_config
 from mvsdet_torch.evaluation.harness import make_predict_fn
@@ -25,6 +36,7 @@ from mvsdet_torch.interop import load_flax_variables
 from mvsdet_torch.models.head import head_predict
 from mvsdet_torch.models.mvsdet import MVSDet
 from mvsdet_torch.ops import nms
+from mvsdet_torch.ops.voxel_lift import lift_diagnostics
 
 from test_torch_port_interop import narrow, random_variables
 
@@ -42,14 +54,17 @@ def runs():
         res = jx_model.apply(tree, batch)
         pred = jx_head_predict(res["head_outs"], res["points"],
                                res["valids"], cfg.model.head)
-        return res, pred
+        diag = jx_model.apply(tree, batch, True, method=JxMVSDet.predict)
+        return res, pred, diag
 
-    res_j, pred_j = jax.tree_util.tree_map(np.asarray, jx_run(tree, batch))
+    res_j, pred_j, diag_j = jax.tree_util.tree_map(np.asarray,
+                                                   jx_run(tree, batch))
+    pred_j = dict(pred_j, diagnostics=diag_j)
 
     model = MVSDet(narrow(port_config.tiny_test_config()).model)
     load_flax_variables(model, tree)
     model.eval()
-    pred_t = make_predict_fn(model, device="cpu")(scene)
+    pred_t = make_predict_fn(model, device="cpu", diagnostics=True)(scene)
     with torch.no_grad():
         res_t = model({k: torch.from_numpy(v) for k, v in scene.items()})
     return cfg, res_j, pred_j, res_t, pred_t
@@ -122,6 +137,67 @@ def test_head_predict_on_equal_inputs(runs):
     np.testing.assert_allclose(pred["scores"].numpy()[mask],
                                pred_j["scores"][mask], rtol=3e-7, atol=0,
                                err_msg="scores")
+
+
+def test_diagnostics_match_jax(runs):
+    cfg, _, pred_j, _, pred_t = runs
+    diag_j = pred_j["diagnostics"]
+    assert pred_t["rendered_depth"].shape == (2,) + cfg.model.target_size
+    assert pred_t["rendered_depth"].dtype == np.float32
+    np.testing.assert_allclose(pred_t["rendered_depth"],
+                               diag_j["rendered_depth"], rtol=1e-4,
+                               atol=1e-4)
+    assert pred_t["rendered_depth"].max() > 0
+    for key in ("weight_gap", "src_rmse"):
+        assert pred_t[key].shape == ()
+        np.testing.assert_allclose(pred_t[key], diag_j[key], rtol=1e-5,
+                                   err_msg=key)
+    assert 0 < diag_j["weight_gap"] < 1
+    for key in ("gs_means", "gs_covariances", "gs_harmonics",
+                "gs_opacities"):
+        np.testing.assert_allclose(pred_t[key], diag_j[key], rtol=1e-5,
+                                   atol=1e-5, err_msg=key)
+
+
+@pytest.mark.parametrize("case", ["good_and_bad_gt", "masked_gt"])
+def test_lift_diagnostics_matches_jax(case):
+    """`lift_diagnostics` on the inputs of the JAX package's own tests
+    (`tests/test_eval_harness.py` `TestLiftDiagnostics`)."""
+    inputs = test_eval_harness.TestLiftDiagnostics()._inputs
+
+    def both(proj, est, prob, points, vz, gt, pred):
+        got = lift_diagnostics(*(torch.tensor(np.asarray(a, np.float32))
+                                 for a in (proj, est, prob, points)), vz,
+                               torch.tensor(gt), torch.tensor(pred))
+        want = jx_lift_diagnostics(*(jnp.asarray(a) for a in (
+            proj, est, prob, points)), vz, jnp.asarray(gt),
+            jnp.asarray(pred))
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                       atol=1e-7)
+        return [float(g) for g in got]
+
+    if case == "good_and_bad_gt":
+        cfg, proj, points, gt = inputs()
+        k = cfg.model.topk
+        est = np.stack([gt + 0.0] + [gt + 10.0] * (k - 1), axis=-1)
+        prob = np.zeros(est.shape, np.float32)
+        prob[..., 0] = 1.0
+        vz = cfg.model.voxel_size[2]
+        wg_good, sr_good = both(proj, est, prob, points, vz, gt, gt)
+        wg_bad, sr_bad = both(proj, est + 2.5, prob, points, vz, gt,
+                              gt + 2.5)
+        assert wg_good < 1e-6 < wg_bad
+        assert sr_good == pytest.approx(0.0, abs=1e-6)
+        assert sr_bad == pytest.approx(2.5 ** 2, rel=1e-4)
+    else:
+        cfg, proj, points, gt = inputs(1)
+        gt[:, ::2] = 0.0                        # half the pixels invalid
+        est = np.stack([gt] * cfg.model.topk, -1)
+        prob = np.ones_like(est) / cfg.model.topk
+        _, sr = both(proj, est, prob, points, cfg.model.voxel_size[2], gt,
+                     gt + 1.0)
+        assert sr == pytest.approx(1.0, rel=1e-5)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
