@@ -79,10 +79,8 @@ Phases, each printed as one JSON line:
            renderer (`ops/splat.py` `render_view`), colour and depth,
            against `render_view_tiled` with every Gaussian binned into
            every tile (K1 then sees every pair the dense renderer sees):
-           within 1e-3 max abs; beside it, what the tiled renderer's
-           3-sigma bins drop at a capacity that holds every bin
-           (reported); the dense renderer's time and peak memory, and
-           those of one forward and backward of its colour render
+           within 1e-3 max abs; the dense renderer's time and peak memory,
+           and those of one forward and backward of its colour render
   train    `scannet_config()` with seeded random weights, one synthetic
            scene of 40 source views (240x320) and 2 targets (120x160),
            3 steps through `fit`, launch counts set to 0 just before and
@@ -146,13 +144,13 @@ Phases, each printed as one JSON line:
            build/vis`: finite depth_rmse, weight_gap and src_rmse, each
            scene's PNGs and a PLY of more than 0 vertices, K1 twice and
            K3 once a scene, the hook's seconds per scene; then the same
-           evaluation with `--diagnostics`, with the
+           evaluation without and with `--diagnostics`, each with the
            kernels and with the plain versions, cuDNN deterministic
            (`launch_test_vs_plain`), from a copy of `best` whose head is
            fitted in closed form to the scenes' spheres on its own neck
            features (`detecting_head`): mAP_0.25 above 0, the boxes,
            scores and labels the mAP is given equal (boxes and scores to
-           1e-5), every AP equal, psnr and ssim and depth_rmse within
+           1e-5), every AP equal, psnr and ssim (and depth_rmse) within
            1e-4 relative, weight_gap and src_rmse within 1e-5; then
            `--arkit` on 2 scenes in bf16: 7-dim boxes reach the mAP, the
            same keys, K1 and K3 (bf16) once per scene
@@ -186,14 +184,15 @@ Phases, each printed as one JSON line:
            `make_sharded_train_step` bit-equal to `train_step`'s (every
            parameter, statistic and loss term)
   parallel_predict
-           the test launcher's `evaluate` with `--data-parallel 2
-           --diagnostics` on 2 ranks from `launch_test`'s fitted
-           checkpoint on its 3 scenes (80 views; the last group padded):
-           the APs equal, psnr and ssim within 1e-4, depth_rmse,
-           weight_gap and src_rmse within 1e-5, the boxes, scores and
-           labels given to the mAP equal (1e-5) to
-           `launch_test_vs_plain`'s one scene at a time; K1 four times
-           (twice with one channel) and K3 twice on each rank
+           the test launcher's `evaluate` with `--data-parallel 2` on 2
+           ranks from `launch_test`'s fitted checkpoint on its 3 scenes
+           (80 views; the last group padded), without and then with
+           `--diagnostics` in the same ranks: the APs equal, psnr and
+           ssim within 1e-4 (depth_rmse, weight_gap and src_rmse within
+           1e-5), the boxes, scores and labels given to the mAP equal
+           (1e-5) to `launch_test_vs_plain`'s kernel run one scene at a
+           time; on each rank K1 and K3 twice, and under the diagnostics
+           K1 twice more with one channel
   launch_train_parallel
            `python -m torch.distributed.run --standalone --nproc_per_node
            2 chip_smoke.py --launch-rank DIR` with the train launcher's
@@ -1085,10 +1084,10 @@ def job_nccl(rank, out):
 
 def job_predict(rank, out, checkpoint, n_scenes):
     """The test launcher's `evaluate` with `--data-parallel` of every rank
-    and `--diagnostics` from ``checkpoint`` on ``n_scenes`` synthetic
-    80-view scenes: its metric dict, the boxes, scores and labels each
-    scene gave the mAP, and its launches (the one-channel K1 launches
-    apart)."""
+    from ``checkpoint`` on ``n_scenes`` synthetic 80-view scenes, without
+    and then with `--diagnostics`: for each, its metric dict, the boxes,
+    scores and labels each scene gave the mAP, and its launches (the
+    one-channel K1 launches apart)."""
     from unittest import mock
 
     from mvsdet_torch.config import scannet_config
@@ -1096,30 +1095,31 @@ def job_predict(rank, out, checkpoint, n_scenes):
     from mvsdet_torch.evaluation.indoor_eval import indoor_map
     from mvsdet_torch.tools import test as test_launcher
 
-    # as `launch_test_vs_plain` ran the same evaluation one scene at a time
+    # as `launch_test_vs_plain` ran the same evaluations one scene at a time
     torch.backends.cudnn.deterministic = True
     world = dist.get_world_size()
-    scored = []
-
-    def scoring_map(preds, gts, **kwargs):
-        scored.extend(preds)
-        return indoor_map(preds, gts, **kwargs)
-
     fns = _launch_counts()
-    _reset_launches(fns)
-    with mock.patch.object(harness, "indoor_map", scoring_map):
-        results = test_launcher.evaluate(scannet_config(),
-                                         test_launcher.parse_args([
-                                             "--synthetic", str(n_scenes),
-                                             "--checkpoint", checkpoint,
-                                             "--data-parallel", str(world),
-                                             "--diagnostics"]))
-    launches, bf16_launches = _read_launches(fns)
-    return dict(results=results, launches=launches,
-                bf16_launches=bf16_launches,
-                c1_launches=fns["composite_tiles"].c1_launches,
-                preds=[{k: v.tolist() for k, v in p.items()}
-                       for p in scored],
+    runs = {}
+    for run, extra in (("predict", []), ("diagnostics", ["--diagnostics"])):
+        scored = []
+
+        def scoring_map(preds, gts, **kwargs):
+            scored.extend(preds)
+            return indoor_map(preds, gts, **kwargs)
+
+        _reset_launches(fns)
+        with mock.patch.object(harness, "indoor_map", scoring_map):
+            results = test_launcher.evaluate(
+                scannet_config(), test_launcher.parse_args(
+                    ["--synthetic", str(n_scenes), "--checkpoint", checkpoint,
+                     "--data-parallel", str(world)] + extra))
+        launches, bf16_launches = _read_launches(fns)
+        runs[run] = dict(results=results, launches=launches,
+                         bf16_launches=bf16_launches,
+                         c1_launches=fns["composite_tiles"].c1_launches,
+                         preds=[{k: v.tolist() for k, v in p.items()}
+                                for p in scored])
+    return dict(runs=runs,
                 peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -1318,55 +1318,67 @@ def parallel_train_phase(cfg):
 
 def parallel_predict_phase(checkpoint, n_scenes, single, single_scored):
     """`parallel_predict`: the test launcher's evaluation with
-    `--data-parallel 2 --diagnostics` on 2 ranks against the same
-    evaluation one scene at a time (``single``, with the boxes, scores and
-    labels each scene gave the mAP, ``single_scored``)."""
+    `--data-parallel 2` on 2 ranks, without and then with `--diagnostics`,
+    against the same evaluations one scene at a time (``single[run]``,
+    with the boxes, scores and labels each scene gave the mAP,
+    ``single_scored[run]``)."""
     ranks = run_ranks("predict", 2, str(checkpoint), n_scenes)
-    got = ranks[0]["results"]
-    aps = sorted(k for k in single if k.startswith(("AP_", "mAP", "mAR")))
-    ap_equal = set(got) == set(single) and all(got[k] == single[k]
-                                               for k in aps)
-    nvs_rel = {k: abs(got[k] - single[k]) / abs(single[k])
-               for k in ("psnr", "ssim")}
-    diag_rel = {k: abs(got[k] - single[k]) / abs(single[k])
-                for k in DIAGNOSTICS_METRICS}
-    pairs = list(zip(ranks[0]["preds"], single_scored))
-    preds_equal = len(pairs) == n_scenes and all(
-        np.array_equal(a["labels"], b["labels"])
-        and np.allclose(a["boxes"], b["boxes"], rtol=1e-5, atol=1e-5)
-        and np.allclose(a["scores"], b["scores"], rtol=1e-5, atol=1e-5)
-        for a, b in pairs)
-    emit(phase="parallel_predict", backend=ranks[0]["backend"], ranks=2,
-         group_size=2, scenes=n_scenes, aps_equal=ap_equal,
-         nvs_rel_err=nvs_rel, diagnostics_rel_err=diag_rel,
-         diagnostics={k: got[k] for k in DIAGNOSTICS_METRICS},
-         preds_equal=preds_equal, map_025=got["mAP_0.25"],
-         predict_s=[(r["results"]["predict_s_first"],
-                     r["results"].get("predict_s_per_scene")) for r in ranks],
-         launches=[r["launches"] for r in ranks],
-         c1_launches=[r["c1_launches"] for r in ranks],
-         peak_memory_gb=[r["peak_memory_gb"] for r in ranks])
-    untimed = lambda res: {k: v for k, v in res.items()
-                           if not k.startswith("predict_s")}
-    check(all(untimed(r["results"]) == untimed(got) for r in ranks[1:]),
-          "parallel_predict: the ranks' metrics differ")
-    check(preds_equal, "parallel_predict: the boxes, scores or labels given "
-                       "to the mAP differ from one scene at a time's")
-    check(got["mAP_0.25"] > 0, "parallel_predict: nothing detected, so the "
-                               "APs' equality would hold trivially")
-    check(ap_equal, f"parallel_predict: APs differ: {got} against {single}")
-    check(max(nvs_rel.values()) <= 1e-4,
-          f"parallel_predict: psnr/ssim differ by {nvs_rel}")
-    check(max(diag_rel.values()) <= 1e-5,
-          f"parallel_predict: the diagnostics differ by {diag_rel}")
-    for r in ranks:
-        # each rank predicts one scene of each group of 2, the last padded:
-        # K1 twice a scene (colour, then the one-channel depth), K3 once
-        want = {name: {"composite_tiles": 4, "weighted_gather_sum": 2}.get(
-                    name, 0) for name in r["launches"]}
-        check(r["launches"] == want and r["c1_launches"] == 2,
-              f"parallel_predict rank {r['rank']}: launches {r['launches']}, "
-              f"one-channel K1 {r['c1_launches']}")
+    for run in ("predict", "diagnostics"):
+        diagnostics = run == "diagnostics"
+        tag = "parallel_predict" + " --diagnostics" * diagnostics
+        by_rank = [r["runs"][run] for r in ranks]
+        got, want = by_rank[0]["results"], single[run]
+        aps = sorted(k for k in want if k.startswith(("AP_", "mAP", "mAR")))
+        ap_equal = set(got) == set(want) and all(got[k] == want[k]
+                                                 for k in aps)
+        nvs_rel = {k: abs(got[k] - want[k]) / abs(want[k])
+                   for k in ("psnr", "ssim")}
+        diag_rel = {k: abs(got[k] - want[k]) / abs(want[k])
+                    for k in DIAGNOSTICS_METRICS if diagnostics}
+        pairs = list(zip(by_rank[0]["preds"], single_scored[run]))
+        preds_equal = len(pairs) == n_scenes and all(
+            np.array_equal(a["labels"], b["labels"])
+            and np.allclose(a["boxes"], b["boxes"], rtol=1e-5, atol=1e-5)
+            and np.allclose(a["scores"], b["scores"], rtol=1e-5, atol=1e-5)
+            for a, b in pairs)
+        emit(phase="parallel_predict", backend=ranks[0]["backend"], ranks=2,
+             group_size=2, scenes=n_scenes, diagnostics=diagnostics,
+             aps_equal=ap_equal, nvs_rel_err=nvs_rel,
+             diagnostics_rel_err=diag_rel,
+             diagnostics_metrics={k: got[k] for k in diag_rel},
+             preds_equal=preds_equal, map_025=got["mAP_0.25"],
+             predict_s=[(r["results"]["predict_s_first"],
+                         r["results"].get("predict_s_per_scene"))
+                        for r in by_rank],
+             launches=[r["launches"] for r in by_rank],
+             c1_launches=[r["c1_launches"] for r in by_rank],
+             peak_memory_gb=[r["peak_memory_gb"] for r in ranks])
+        untimed = lambda res: {k: v for k, v in res.items()
+                               if not k.startswith("predict_s")}
+        check(all(untimed(r["results"]) == untimed(got) for r in by_rank[1:]),
+              f"{tag}: the ranks' metrics differ")
+        check(preds_equal, f"{tag}: the boxes, scores or labels given to the "
+                           f"mAP differ from one scene at a time's")
+        check(got["mAP_0.25"] > 0, f"{tag}: nothing detected, so the APs' "
+                                   f"equality would hold trivially")
+        check(ap_equal, f"{tag}: APs differ: {got} against {want}")
+        check(max(nvs_rel.values()) <= 1e-4,
+              f"{tag}: psnr/ssim differ by {nvs_rel}")
+        check(not diagnostics or (diag_rel.keys() == set(DIAGNOSTICS_METRICS)
+                                  and max(diag_rel.values()) <= 1e-5),
+              f"{tag}: the diagnostics differ by {diag_rel}")
+        for rank, r in enumerate(by_rank):
+            # each rank predicts one scene of each group of 2, the last
+            # padded: K1 once a scene and K3 once, K1 once more with one
+            # channel (the rendered depth) under the diagnostics
+            want_launches = {
+                name: {"composite_tiles": 2 + 2 * diagnostics,
+                       "weighted_gather_sum": 2}.get(name, 0)
+                for name in r["launches"]}
+            check(r["launches"] == want_launches
+                  and r["c1_launches"] == 2 * diagnostics,
+                  f"{tag} rank {rank}: launches {r['launches']}, "
+                  f"one-channel K1 {r['c1_launches']}")
 
 
 def launch_rank(out: str, argv) -> None:
@@ -2515,14 +2527,11 @@ def main(argv=None) -> int:
         `render_view`, colour and depth, against `render_view_tiled`
         binning every Gaussian into every tile (capacity G, so K1 sees
         each pair the dense renderer sees and culls by its own exact
-        alpha boxes): within 1e-3 max abs.  Beside it, the tiled renderer
-        as the model runs it (3-sigma tile bins, with a capacity that holds
-        every tile's): what the bins drop, reported.  The dense renderer's
-        time and peak memory, forward alone and, for the colour, with its
+        alpha boxes): within 1e-3 max abs.  The dense renderer's time and
+        peak memory, forward alone and, for the colour, with its
         backward."""
-        from mvsdet_torch.ops.splat import project_gaussians, render_view
-        from mvsdet_torch.ops.splat_tiles import (TILE, render_view_tiled,
-                                                  splat_radii)
+        from mvsdet_torch.ops.splat import render_view
+        from mvsdet_torch.ops.splat_tiles import render_view_tiled
         mc = cfg.model
         cfg8 = dataclasses.replace(cfg, model=dataclasses.replace(
             mc, gs=dataclasses.replace(
@@ -2543,24 +2552,6 @@ def main(argv=None) -> int:
         w2c = torch.linalg.inv(c2w)
         z = (gs.means @ w2c[2, :3] + w2c[2, 3])[:, None]
         bg = torch.tensor(mc.gs.background_color, device="cuda")
-        # the most Gaussians any tile's 3-sigma bin holds: the capacity at
-        # which the tiled renderer drops none of its bins
-        h, w = mc.target_size
-        mean2d, _, _, valid, cov_tri = project_gaussians(
-            gs.means, gs.covariances, c2w, k, mc.target_size)
-        rad = splat_radii(cov_tri)
-        lo = torch.floor((mean2d - rad[:, None]) / TILE)
-        hi = torch.floor((mean2d + rad[:, None]) / TILE)
-        ty = torch.arange(-(-h // TILE), device="cuda")
-        tx = torch.arange(-(-w // TILE), device="cuda")
-        per_tile = ((ty[None, :, None] >= lo[:, 1, None, None])
-                    & (ty[None, :, None] <= hi[:, 1, None, None])
-                    & (tx[None, None, :] >= lo[:, 0, None, None])
-                    & (tx[None, None, :] <= hi[:, 0, None, None])
-                    & valid[:, None, None]).sum(0)
-        most = int(per_tile.max())
-        capacity = max(mc.gs.splat_capacity, -(-most // 128) * 128)
-        del mean2d, valid, cov_tri, rad, lo, hi, per_tile
         args = (gs.means, gs.covariances, gs.harmonics, gs.opacities, c2w, k,
                 mc.target_size)
         torch.cuda.synchronize()
@@ -2573,16 +2564,6 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         dense_s = time.perf_counter() - t0
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-
-        def tiled(capacity):
-            with torch.no_grad():
-                return (render_view_tiled(*args, background=bg,
-                                          capacity=capacity),
-                        render_view_tiled(*args, capacity=capacity,
-                                          value_override=z))
-
-        def errs(a, b):
-            return [(x - y).abs().max().item() for x, y in zip(a, b)]
 
         # one backward of the dense colour render, as a training step
         # would take it: every chunk's intermediates kept
@@ -2599,17 +2580,19 @@ def main(argv=None) -> int:
         grads_finite = all(bool(torch.isfinite(a.grad).all())
                            for a in leaves)
         del leaves
-        binned = errs(dense, tiled(capacity))
         # every Gaussian in every tile's bin: only K1's cull boxes remain
+        capacity = -(-n_gs // 128) * 128
         with mock.patch.object(splat_tiles, "splat_radii",
-                               lambda cov: torch.full_like(cov[:, 0], 1e9)):
-            unbinned = errs(dense, tiled(-(-n_gs // 128) * 128))
+                               lambda cov: torch.full_like(cov[:, 0], 1e9)), \
+                torch.no_grad():
+            tiled = (render_view_tiled(*args, background=bg,
+                                       capacity=capacity),
+                     render_view_tiled(*args, capacity=capacity,
+                                       value_override=z))
+        unbinned = [(x - y).abs().max().item() for x, y in zip(dense, tiled)]
         emit(phase="dense_vs_tiled", source_views=DENSE_SOURCE_VIEWS,
              gaussians=n_gs, image=list(mc.target_size),
              rgb_max_abs_err=unbinned[0], depth_max_abs_err=unbinned[1],
-             binned_most_per_tile=most, binned_capacity=capacity,
-             binned_rgb_max_abs_err=binned[0],
-             binned_depth_max_abs_err=binned[1],
              depth_max=dense[1].max().item(), dense_s=dense_s,
              dense_peak_gb_over_inputs=peak,
              dense_colour_forward_backward_s=backward_s,
@@ -2620,7 +2603,7 @@ def main(argv=None) -> int:
         check(max(unbinned) <= 1e-3,
               f"dense_vs_tiled: colour differs by {unbinned[0]}, depth by "
               f"{unbinned[1]} > 1e-3")
-        del model, batch, gs, args, dense, z
+        del model, batch, gs, args, dense, tiled, z
         torch.cuda.empty_cache()
 
     def train_phases(cfg, dtype, scene, grads32=None, phase="train"):
@@ -2988,70 +2971,82 @@ def main(argv=None) -> int:
                        "launch_test --diagnostics")
         check(c1 == N_SCENES, f"launch_test --diagnostics: {c1} "
                               f"one-channel K1 launches")
-        # the same evaluation with the kernels and with the plain versions,
-        # cuDNN deterministic, as `predict_vs_plain` swaps them, from a head
-        # fitted to detect these scenes
+        # the same evaluations, without and with --diagnostics, with the
+        # kernels and with the plain versions, cuDNN deterministic, as
+        # `predict_vs_plain` swaps them, from a head fitted to detect these
+        # scenes
         argv = ["--synthetic", str(N_SCENES), "--checkpoint",
-                str(work / "detecting"), "--diagnostics"]
+                str(work / "detecting")]
         tuned, fit = detecting_head(models[0], cfg)
         torch.save({"model": tuned}, work / "detecting")
         del tuned
-        torch.backends.cudnn.deterministic = True
-        runs, scored = {}, {}
-        for run, lift_fn, comp_fn in (
-                ("kernel", weighted_gather_sum, composite_tiles),
-                ("plain", weighted_gather_sum_reference,
-                 composite_tiles_reference)):
-            def scoring_map(preds, gts, run=run, **kwargs):
-                scored[run] = preds
-                return indoor_map(preds, gts, **kwargs)
+        detecting = (work / "detecting", {}, {})
+        for diagnostics in (False, True):
+            tag = "launch_test" + " --diagnostics" * diagnostics
+            runs, scored = {}, {}
+            torch.backends.cudnn.deterministic = True
+            for run, lift_fn, comp_fn in (
+                    ("kernel", weighted_gather_sum, composite_tiles),
+                    ("plain", weighted_gather_sum_reference,
+                     composite_tiles_reference)):
+                def scoring_map(preds, gts, run=run, **kwargs):
+                    scored[run] = preds
+                    return indoor_map(preds, gts, **kwargs)
 
-            with mock.patch.object(voxel_lift, "weighted_gather_sum",
-                                   lift_fn), \
-                    mock.patch.object(splat_tiles, "composite_tiles",
-                                      comp_fn), \
-                    mock.patch.object(harness, "indoor_map", scoring_map):
-                runs[run] = test_launcher.main(argv)
-        torch.backends.cudnn.deterministic = False
-        kernel, plain = runs["kernel"], runs["plain"]
-        aps = sorted(k for k in plain if k.startswith(("AP_", "mAP", "mAR")))
-        ap_equal = set(kernel) == set(plain) and all(
-            kernel[k] == plain[k] for k in aps)
-        nvs_rel = {k: abs(kernel[k] - plain[k]) / abs(plain[k])
-                   for k in ("psnr", "ssim")}
-        diag_rel = {k: abs(kernel[k] - plain[k]) / abs(plain[k])
-                    for k in DIAGNOSTICS_METRICS}
-        # the boxes, scores and labels the mAP was given, scene by scene
-        pairs = list(zip(scored["kernel"], scored["plain"]))
-        preds_equal = len(pairs) == N_SCENES and all(
-            np.array_equal(a["labels"], b["labels"])
-            and np.allclose(a["boxes"], b["boxes"], rtol=1e-5, atol=1e-5)
-            and np.allclose(a["scores"], b["scores"], rtol=1e-5, atol=1e-5)
-            for a, b in pairs)
-        emit(phase="launch_test_vs_plain", aps_equal=ap_equal,
-             nvs_rel_err=nvs_rel, diagnostics_rel_err=diag_rel,
-             kernel={k: kernel[k] for k in aps[-4:]},
-             plain={k: plain[k] for k in aps[-4:]},
-             boxes_per_scene=[len(b["labels"]) for _, b in pairs],
-             preds_equal=preds_equal, head_fit=fit)
-        check(preds_equal, "launch_test: the boxes, scores or labels given "
-                           "to the mAP differ from the plain versions' "
-                           "(1e-5)")
-        check(plain["mAP_0.25"] > 0, f"launch_test: the tuned head detects "
-                                     f"nothing ({plain}), so the APs' "
-                                     f"equality would hold trivially")
-        check(ap_equal, f"launch_test: APs differ from the plain versions': "
-                        f"{kernel} against {plain}")
-        check(max(nvs_rel.values()) <= 1e-4,
-              f"launch_test: psnr/ssim differ from the plain versions' by "
-              f"{nvs_rel}")
-        # the rendered depth to 1e-4, the lift's diagnostics to 1e-5, as
-        # `diagnostics_vs_plain` holds them
-        check(diag_rel["depth_rmse"] <= 1e-4
-              and max(diag_rel["weight_gap"], diag_rel["src_rmse"]) <= 1e-5,
-              f"launch_test: the diagnostics differ from the plain "
-              f"versions' by {diag_rel}")
-        detecting = (work / "detecting", kernel, scored["kernel"])
+                with mock.patch.object(voxel_lift, "weighted_gather_sum",
+                                       lift_fn), \
+                        mock.patch.object(splat_tiles, "composite_tiles",
+                                          comp_fn), \
+                        mock.patch.object(harness, "indoor_map",
+                                          scoring_map):
+                    runs[run] = test_launcher.main(
+                        argv + ["--diagnostics"] * diagnostics)
+            torch.backends.cudnn.deterministic = False
+            kernel, plain = runs["kernel"], runs["plain"]
+            aps = sorted(k for k in plain
+                         if k.startswith(("AP_", "mAP", "mAR")))
+            ap_equal = set(kernel) == set(plain) and all(
+                kernel[k] == plain[k] for k in aps)
+            nvs_rel = {k: abs(kernel[k] - plain[k]) / abs(plain[k])
+                       for k in ("psnr", "ssim")}
+            diag_rel = {k: abs(kernel[k] - plain[k]) / abs(plain[k])
+                        for k in DIAGNOSTICS_METRICS if diagnostics}
+            # the boxes, scores and labels the mAP was given, scene by scene
+            pairs = list(zip(scored["kernel"], scored["plain"]))
+            preds_equal = len(pairs) == N_SCENES and all(
+                np.array_equal(a["labels"], b["labels"])
+                and np.allclose(a["boxes"], b["boxes"], rtol=1e-5, atol=1e-5)
+                and np.allclose(a["scores"], b["scores"], rtol=1e-5,
+                                atol=1e-5)
+                for a, b in pairs)
+            emit(phase="launch_test_vs_plain", diagnostics=diagnostics,
+                 aps_equal=ap_equal, nvs_rel_err=nvs_rel,
+                 diagnostics_rel_err=diag_rel,
+                 kernel={k: kernel[k] for k in aps[-4:]},
+                 plain={k: plain[k] for k in aps[-4:]},
+                 boxes_per_scene=[len(b["labels"]) for _, b in pairs],
+                 preds_equal=preds_equal, head_fit=fit)
+            check(preds_equal, f"{tag}: the boxes, scores or labels given "
+                               f"to the mAP differ from the plain versions' "
+                               f"(1e-5)")
+            check(plain["mAP_0.25"] > 0, f"{tag}: the tuned head detects "
+                                         f"nothing ({plain}), so the APs' "
+                                         f"equality would hold trivially")
+            check(ap_equal, f"{tag}: APs differ from the plain versions': "
+                            f"{kernel} against {plain}")
+            check(max(nvs_rel.values()) <= 1e-4,
+                  f"{tag}: psnr/ssim differ from the plain versions' by "
+                  f"{nvs_rel}")
+            # the rendered depth to 1e-4, the lift's diagnostics to 1e-5, as
+            # `diagnostics_vs_plain` holds them
+            check(not diagnostics or (
+                diag_rel["depth_rmse"] <= 1e-4
+                and max(diag_rel["weight_gap"], diag_rel["src_rmse"])
+                <= 1e-5),
+                  f"{tag}: the diagnostics differ from the plain "
+                  f"versions' by {diag_rel}")
+            run = "diagnostics" if diagnostics else "predict"
+            detecting[1][run], detecting[2][run] = kernel, scored["kernel"]
 
         # -- test --arkit in bf16: the rotated mAP ----------------------------
         arkit_dims = []

@@ -53,8 +53,7 @@ M18_MODULES = ("mvsdet_torch.tools.overfit_map", "mvsdet_torch.models.flax_init"
 M17_MODULES = (
     "mvsdet_torch.utils.imageio", "mvsdet_torch.utils.box_vis",
     "mvsdet_torch.utils.ply_export", "mvsdet_torch.utils.profiling",
-    "mvsdet_torch.ops.splat", "mvsdet_torch.ops.voxel_lift",
-    "mvsdet_torch.tools.overfit_spread")
+    "mvsdet_torch.ops.splat", "mvsdet_torch.ops.voxel_lift")
 NAMED_MODULES = (M13_MODULES + M15_MODULES + M16_MODULES + M18_MODULES
                  + M17_MODULES)
 
