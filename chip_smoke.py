@@ -98,6 +98,28 @@ Phases, each printed as one JSON line:
            bf16 a gradient <= 2.5e-2 and all of them together <= 1e-2
            (K4's one-ulp roundings, spread by the bf16 backward), beside
            their distance from the float32 run's gradients
+  sweep_paths
+           the port's counterpart of `scripts/compare_sweep_paths.py`, at
+           the step's inputs: the features of the 40-view scene from the
+           seeded ResNet-50 + FPN (60x80, C=256), D=12, k=2.  Every view
+           swept by the default two-product shear warp
+           (`sweep_method="mxu"`, the sweep of every other phase) and by
+           the bilinear gather with the same CostRegNet, in float32 and
+           in bf16: top-1 plane agreement, the probabilities'
+           correlation, the top-k depth sets matching to a tenth of the
+           plane interval, the depth expectation's RMSE and maximum
+           difference.  The card's mxu sweep against the port's on the
+           CPU on 2 reference views: from the same homographies the warp
+           within 1e-5 of max |CPU| in float32, within its witness (the
+           card's bf16 against its float32) in bf16; each device from its
+           own inverse and homographies, the warped neighbours and the
+           variance within twice their witness, the CPU's sweep from
+           projections one float32 ulp away.  Times of one sweep chunk
+           (8 references) forward and forward + backward for each sweep
+           and dtype, and the steady
+           80-view predict (3 scenes) and 3-step training step with each
+           sweep in each dtype, and the float32 step with CostRegNet in
+           BatchNorm mode, with their peak memory
   arkit_predict
            `arkit_config()` at full width (per-view intrinsics, the yaw
            head, 17 classes) with seeded random weights, three synthetic
@@ -167,11 +189,14 @@ Phases, each printed as one JSON line:
            time).  data 2: losses <= 1e-5 and every gradient <= 1e-4
            relative against the mean of the two scenes' unsharded steps
            with the head's positive count set to their mean.  view 2:
-           losses <= 1e-5 against the unsharded step, and the largest
-           leaf's and all the gradients' distance from it at most twice
-           the witness's, the unsharded step with the lift summed as two
-           halves (a change of summation order alone; ~5e-3 at full
-           width).  Per rank: K1-K5 and the index once a step, the step
+           losses <= 1e-5 against the unsharded step batched as the ranks
+           batch (the backbone on each half of the views, CostRegNet on
+           the ranks' sweep chunks, the lift summed as two halves; the
+           plain unsharded step's distance is reported beside it), and
+           the largest leaf's and all the gradients' distance from it at
+           most twice the witness's, the plain unsharded step against
+           the same with the lift summed as two halves (a change of
+           summation order alone).  Per rank: K1-K5 and the index once a step, the step
            times, the peak memory, every collective's calls, MB and ms,
            and every rank's parameters equal after the steps
   parallel_train_bf16
@@ -1146,14 +1171,17 @@ def parallel_train_phase(cfg):
 
     The data-2 step is held to the bounds of `train_vs_plain` (losses
     1e-5, every gradient 1e-4 relative): each rank computes a whole scene
-    as the unsharded step does.  The view-2 step sums its volume as two
-    ranks' sums and runs the backbone on 20 views at a time, which round
-    otherwise than the unsharded step, and at full width the step's
-    gradients move by ~5e-3 under such rounding-level changes: the
-    witness is the unsharded step whose lift sums the two halves apart
-    (`halves`), a change of summation order alone.  So at view 2 the
-    losses keep the 1e-5 bound, and the gradients' largest leaf and all
-    of them together may be twice the witness's distance from the plain
+    as the unsharded step does.  The view-2 step runs the backbone on 20
+    views at a time, CostRegNet on the ranks' chunks of 5 references and
+    sums its volume as two ranks' sums, which round otherwise than the
+    unsharded step; at full width a rounding-level change can move a
+    depth plane across the top-k boundary, and the step with it.  So at
+    view 2 the reference is the unsharded step batched as the ranks batch
+    (`as_ranks`: the backbone on each half of the views, the ranks'
+    sweep chunk, the lift summed as two halves): the losses keep the
+    1e-5 bound against it, and the gradients' largest leaf and all of
+    them together may be twice the witness's distance from it, the
+    witness being how far the lift's two halves alone move the plain
     unsharded step."""
     from mvsdet_torch.data.prefetch import stage_batch
     from mvsdet_torch.data.synthetic import make_synthetic_scene
@@ -1180,16 +1208,36 @@ def parallel_train_phase(cfg):
                      points, vz) for s in (slice(0, h), slice(h, None)))
         return a[0] + b[0], a[1] + b[1]
 
-    def unsharded(scene, n_pos=None, halves=False):
+    image_features = model.image_features
+
+    def features_halves(images):
+        """The backbone on each half of the views (as two view ranks run
+        it)."""
+        h = images.shape[0] // 2
+        return torch.cat([image_features(images[:h]),
+                          image_features(images[h:])])
+
+    def unsharded(scene, n_pos=None, halves=False, as_ranks=False):
         """The loss terms and gradients of one scene from the initial
         weights, the head's positive count set to ``n_pos`` if given, the
-        lift split into two halves with ``halves``."""
+        lift split into two halves with ``halves``, and with ``as_ranks``
+        also the backbone and the sweep chunks as two view ranks batch
+        them."""
         model.load_state_dict(initial)
         model.zero_grad(set_to_none=True)
         batch = stage_batch(scene, "cuda")
-        if halves:
+        if halves or as_ranks:
+            n = scene["images"].shape[0] // 2
+            chunk = max(c for c in range(1, model.sweep_chunk + 1)
+                        if n % c == 0)
             with mock.patch.object(mvsdet_module, "lift_features_to_voxels",
-                                   lift_halves):
+                                   lift_halves), \
+                    mock.patch.object(model, "image_features",
+                                      features_halves if as_ranks
+                                      else image_features), \
+                    mock.patch.object(model, "sweep_chunk",
+                                      chunk if as_ranks
+                                      else model.sweep_chunk):
                 total, aux = model.loss(batch)
         elif n_pos is None:
             total, aux = model.loss(batch)
@@ -1208,9 +1256,10 @@ def parallel_train_phase(cfg):
                 {k: p.grad.cpu() for k, p in model.named_parameters()
                  if p.grad is not None})
 
-    view_ref = unsharded(scenes[0])
+    plain_ref = unsharded(scenes[0])
     halves_ref = unsharded(scenes[0], halves=True)
-    witness = _rel_by_leaf(halves_ref[1], view_ref[1])
+    view_ref = unsharded(scenes[0], as_ranks=True)
+    witness = _rel_by_leaf(halves_ref[1], plain_ref[1])
     n_pos = sum(unsharded(s)[0]["n_pos"] for s in scenes) / len(scenes)
     per_scene = [unsharded(s, n_pos) for s in scenes]
     data_ref = ({k: sum(m[k] for m, _ in per_scene) / len(scenes)
@@ -1224,7 +1273,7 @@ def parallel_train_phase(cfg):
 
     grads_path = str(Path(__file__).resolve().parent / "build" / "parallel"
                      / "grads.pt")
-    witness_all = _rel_all(halves_ref[1], view_ref[1])
+    witness_all = _rel_all(halves_ref[1], plain_ref[1])
     for name, data, view, ref in (("view2", 1, 2, view_ref),
                                   ("data2", 2, 1, data_ref)):
         ranks = run_ranks("train", 2, data, view, "float32", 3, grads_path)
@@ -1242,14 +1291,18 @@ def parallel_train_phase(cfg):
             all_tol = 2 * witness_all
             extra = dict(witness_max_grad_rel_err=max(witness.values()),
                          witness_all_grads_rel_err=witness_all,
-                         halves_max_grad_rel_err=max(_rel_by_leaf(
-                             got, halves_ref[1]).values()))
+                         plain_loss_rel_err={
+                             k: abs(metrics[k] - v) / max(abs(v), 1e-30)
+                             for k, v in plain_ref[0].items()},
+                         plain_max_grad_rel_err=max(_rel_by_leaf(
+                             got, plain_ref[1]).values()))
         else:
             leaf_tol, all_tol, extra = 1e-4, 1e-4, {}
         emit(phase="parallel_train", case=name, dtype="float32",
              data=data, view=view, backend=ranks[0]["backend"],
              local_views=ranks[0]["local_views"],
-             reference="the unsharded step" if name == "view2"
+             reference="the unsharded step batched as the ranks batch"
+             if name == "view2"
              else "mean of the unsharded scenes, n_pos their mean",
              loss_rel_err=loss_rel, max_grad_rel_err=worst[0][1],
              all_grads_rel_err=all_rel, grad_tolerance=[leaf_tol, all_tol],
@@ -1276,7 +1329,7 @@ def parallel_train_phase(cfg):
                                           f"{r['backend']} for 2 ranks on "
                                           f"one card")
         del got, want_grads
-    del view_ref, halves_ref, data_ref
+    del view_ref, plain_ref, halves_ref, data_ref
 
     # data 2 x view 2 in bf16 on 4 ranks
     ranks = run_ranks("train", 4, 2, 2, "bfloat16", 2, None)
@@ -1824,6 +1877,204 @@ OVERFIT_SCENES = 2
 # script another draw: MVSDet's cases (NeRF-Det's default-mode runs ended
 # at its deterministic runs' finals on every seed and in both dtypes)
 OVERFIT_MODES = {"deterministic": 5, "default": 3}
+
+
+SWEEP_CPU_REFS = 2        # reference views the CPU sweeps for sweep_paths
+
+
+def sweep_paths_phase(cfg, scene, predict_scenes):
+    """`sweep_paths` (see the module docstring): the default mxu sweep
+    against the gather on the step's 40-view scene, the card's mxu sweep
+    against the CPU's, both sweeps' chunk, predict and step times."""
+    from mvsdet_torch.evaluation.harness import make_predict_fn
+    from mvsdet_torch.geometry.cameras import (full_projection,
+                                               knn_camera_neighbors,
+                                               scale_intrinsics)
+    from mvsdet_torch.geometry.voxels import depth_plane_values
+    from mvsdet_torch.models.mvsdet import build_model
+    from mvsdet_torch.ops import plane_sweep_mxu
+    from mvsdet_torch.ops.plane_sweep import plane_sweep_variance_for_refs
+    from mvsdet_torch.ops.plane_sweep_mxu import plane_sweep_variance_mxu
+    from mvsdet_torch.training.loop import create_train_state, fit
+
+    mc = cfg.model
+    batch = {k: torch.as_tensor(v).cuda() for k, v in scene.items()}
+    n = batch["images"].shape[0]
+    proj44 = full_projection(batch["w2c"], scale_intrinsics(
+        batch["intrinsic"], float(mc.feature_stride)))
+    nb = knn_camera_neighbors(torch.linalg.inv_ex(batch["w2c"]).inverse[
+        :, :3, 3], min(mc.plane_sweep_neighbors, n - 1))
+    depths = depth_plane_values(*mc.near_far_range, mc.gs.num_depth_planes,
+                                device="cuda")
+    sweeps = {"mxu": plane_sweep_variance_mxu,
+              "gather": lambda *a, compute_dtype:
+              plane_sweep_variance_for_refs(*a)}
+    gen = lambda: torch.Generator().manual_seed(cfg.seed)    # noqa: E731
+
+    def step_times(step_cfg, compute_dtype, **line):
+        """TRAIN_STEPS steps of one train state through `fit` with each
+        sweep: the step times and the peak memory."""
+        state = create_train_state(step_cfg, device="cuda",
+                                   dtype=compute_dtype, generator=gen())
+        for method in ("mxu", "gather"):
+            state.model.sweep_method = method
+            times, t_last = [], [0.0]
+
+            def log_step(i, metrics):
+                now = time.perf_counter()
+                times.append((now - t_last[0]) * 1e3)
+                t_last[0] = now
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_last[0] = time.perf_counter()
+            fit(state, (scene for _ in range(TRAIN_STEPS)), TRAIN_STEPS,
+                log_every=1, log_fn=log_step)
+            emit(phase="sweep_paths", **line, sweep=method, step_views=n,
+                 step_ms=times, steady_step_ms=statistics.mean(times[1:]),
+                 step_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del state
+        torch.cuda.empty_cache()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        label = str(dtype).replace("torch.", "")
+        model = build_model(cfg, device="cuda", dtype=dtype, generator=gen())
+        with torch.no_grad():
+            feats = model.image_features(batch["images"].to(dtype)).float()
+            out = {}
+            for method in ("mxu", "gather"):
+                model.sweep_method = method
+                prob, off = model.depth_probabilities(feats, proj44, nb)
+                est, _, expect = model.sample_depth(prob, off)
+                out[method] = (prob, est, expect)
+        (pm, em, xm), (pg, eg, xg) = out["mxu"], out["gather"]
+        corr = torch.corrcoef(torch.stack([pm.flatten(), pg.flatten()])
+                              .double())[0, 1].item()
+        diff = (xm - xg).double()
+        emit(phase="sweep_paths", dtype=label, views=n,
+             planes=int(depths.shape[0]), neighbours=int(nb.shape[1]),
+             feature_shape=list(feats.shape[1:]),
+             top1_plane_agreement=(pm.argmax(1) == pg.argmax(1)).double()
+             .mean().item(), prob_corr=corr,
+             topk_depth_set_match=((em.sort(-1).values - eg.sort(-1).values)
+                                   .abs() < 0.1 * mc.depth_interval)
+             .double().mean().item(),
+             depth_expect_rmse_m=diff.square().mean().sqrt().item(),
+             depth_expect_max_abs_m=diff.abs().max().item())
+        check(all(torch.isfinite(t).all() for t in (pm, pg, xm, xg)),
+              f"sweep_paths {label}: depth probabilities not finite")
+        del out, pm, pg, em, eg, xm, xg, diff
+
+        # the card's mxu sweep against the CPU's on a few reference views.
+        # The warp from one set of homographies (the CPU's) on both: their
+        # products sum in other orders.  The whole sweep, each device
+        # taking its own inverse and homographies: a sample position's
+        # float32 rounding moves its weights, so that difference is held
+        # beside its witness, the CPU's sweep from projections one float32
+        # ulp away.  The variance's subtraction E[f^2] - E[f]^2 cancels:
+        # its rounding is that of E[f^2]
+        refs = torch.arange(SWEEP_CPU_REFS, device="cuda")
+
+        def sweep_mxu(dev, compute_dtype, proj=proj44):
+            warp = Recorder(plane_sweep_mxu._warp)
+            with mock.patch.object(plane_sweep_mxu, "_warp", warp):
+                var = plane_sweep_variance_mxu(
+                    feats.to(dev), proj.to(dev), refs.to(dev),
+                    nb[refs].to(dev), depths.to(dev),
+                    compute_dtype=compute_dtype)
+            return warp.out.cpu(), var.cpu(), warp.args
+
+        warp_card, var_card, _ = sweep_mxu("cuda", dtype)
+        warp_cpu, var_cpu, (src, homos, _) = sweep_mxu("cpu", dtype)
+        same = plane_sweep_mxu._warp(src.cuda(), homos.cuda(), dtype).cpu()
+        ulp = sweep_mxu("cpu", dtype, torch.nextafter(
+            proj44, torch.full_like(proj44, math.inf)))
+        ref = feats[refs].cpu()[:, None]
+        k = nb.shape[1]
+        square = ((ref**2 + warp_cpu.reshape((len(refs), k)
+                                             + warp_cpu.shape[1:])
+                   .square().sum(1)) / (k + 1)).abs().max().item()
+        same_err = (same - warp_cpu).abs().max().item()
+        warp_err = (warp_card - warp_cpu).abs().max().item()
+        var_err = (var_card - var_cpu).abs().max().item()
+        warp_ulp = (ulp[0] - warp_cpu).abs().max().item()
+        var_ulp = (ulp[1] - var_cpu).abs().max().item()
+        warp_scale = warp_cpu.abs().max().item()
+        line = dict(phase="sweep_paths", dtype=label, check="card_vs_cpu",
+                    refs=SWEEP_CPU_REFS, same_homographies_warp_err=same_err,
+                    warp_max_abs_err=warp_err, warp_ulp_witness=warp_ulp,
+                    warp_max_abs=warp_scale, variance_max_abs_err=var_err,
+                    variance_ulp_witness=var_ulp,
+                    variance_max_abs=var_cpu.abs().max().item(),
+                    mean_square_max=square)
+        if dtype == torch.float32:
+            emit(**line, same_homographies_rel_err=same_err / warp_scale)
+            check(same_err <= 1e-5 * warp_scale,
+                  f"sweep_paths: the card's float32 mxu warp differs from "
+                  f"the CPU's by {same_err} (max {warp_scale})")
+        else:
+            witness = (same - plane_sweep_mxu._warp(
+                src.cuda(), homos.cuda(), torch.float32).cpu()
+                       ).abs().max().item()
+            emit(**line, same_homographies_witness_bf16_vs_float32=witness)
+            check(0 < witness and same_err <= witness,
+                  f"sweep_paths: the card's bf16 mxu warp differs from the "
+                  f"CPU's by {same_err}, its witness {witness}")
+        check(warp_err <= 2 * warp_ulp and var_err <= 2 * var_ulp,
+              f"sweep_paths {label}: the card's mxu sweep differs from the "
+              f"CPU's by {warp_err} (warped) and {var_err} (variance), more "
+              f"than twice the one-ulp witnesses {warp_ulp} and {var_ulp}")
+        del warp_card, warp_cpu, var_card, var_cpu, same, ulp, src, homos
+
+        # one sweep chunk, forward and forward + backward
+        chunk = torch.arange(model.sweep_chunk, device="cuda")
+        leaf = feats.detach().requires_grad_()
+        for method in ("mxu", "gather"):
+            fn = sweeps[method]
+            args = (proj44, chunk, nb[chunk], depths)
+            cot = torch.randn((len(chunk), len(depths)) + feats.shape[1:],
+                              device="cuda", generator=torch.Generator(
+                                  "cuda").manual_seed(0))
+
+            def forward():
+                with torch.no_grad():
+                    fn(feats, *args, compute_dtype=dtype)
+
+            def forward_backward():
+                fn(leaf, *args, compute_dtype=dtype).backward(cot)
+
+            torch.cuda.reset_peak_memory_stats()
+            emit(phase="sweep_paths", dtype=label, sweep=method,
+                 chunk_refs=len(chunk), chunk_forward_ms=cuda_ms(
+                     forward, reps=5, trials=3),
+                 chunk_forward_backward_ms=cuda_ms(forward_backward, reps=3,
+                                                   trials=3),
+                 chunk_peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del cot
+        del leaf, feats
+
+        # the steady predict and step with each sweep, the same weights
+        predict = make_predict_fn(model)
+        for method in ("mxu", "gather"):
+            model.sweep_method = method
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for sc in predict_scenes:
+                t0 = time.perf_counter()
+                predict(sc)
+                times.append((time.perf_counter() - t0) * 1e3)
+            emit(phase="sweep_paths", dtype=label, sweep=method,
+                 predict_views=predict_scenes[0]["images"].shape[0],
+                 predict_ms=times, steady_predict_ms=statistics.mean(
+                     times[1:]),
+                 predict_peak_memory_gb=torch.cuda.max_memory_allocated()
+                 / 1e9)
+        del model, predict
+        step_times(cfg, dtype, dtype=label)
+    # BatchNorm mode: one sweep chunk of all 40 views, no checkpoint
+    step_times(dataclasses.replace(cfg, model=dataclasses.replace(
+        mc, cost_reg_norm="batch")), torch.float32, dtype="float32",
+        cost_reg_norm="batch")
 
 
 def _overfit_worker(index, mode, jobs, out):
@@ -3098,6 +3349,7 @@ def main(argv=None) -> int:
         cfg, torch.float32, scene)
     _, train_bf16_launches, recorders_bf16, _, _ = train_phases(
         cfg, bf16, scene, grads32)
+    sweep_paths_phase(cfg, scene, scenes)
 
     # -- the ARKit configuration: per-view intrinsics, the yaw head -------
     arkit = arkit_config()

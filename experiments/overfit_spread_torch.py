@@ -23,8 +23,11 @@ each seed; JAX's gate: median final mAP_0.25 and mAR_0.25 above 0.6)
   noise at every step, as in ``default``, with the deterministic
   algorithms' numerics.
 
-One worker process per (mode, seed) shares the card; each draws JAX's
-weights once and loads them into its later runs.  A run's finals go to
+Every run sweeps with the model's default, recorded as ``sweep`` (the
+two-product shear warp, "mxu"; the runs before it was the default swept
+with the gather).  One worker process per (mode, seed) shares the card;
+each draws JAX's weights once and loads them into its later runs.  A
+run's finals go to
 ``<out>/<mode>-<seed>.json``.  The summary reads every such file under
 ``--out``: per mode the finals by seed, the draws' medians and the gate's
 misses, and per seed and pooled the two-sided Mann-Whitney rank test of
@@ -71,7 +74,7 @@ def _worker(mode: str, seed: int, draws: int, out: str) -> None:
     torch.set_num_threads(1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    weights = {}
+    weights, sweep = {}, []
     plain_state, plain_step = overfit_map.create_train_state, \
         overfit_map.step_fn
     draw_now = [0]
@@ -84,6 +87,7 @@ def _worker(mode: str, seed: int, draws: int, out: str) -> None:
         else:
             state = plain_state(cfg, **kwargs)
             state.model.load_state_dict(weights)
+        sweep[:] = [state.model.sweep_method]
         if mode == "witness":
             params = list(state.model.parameters())
             rng = np.random.default_rng([draw_now[0], seed])
@@ -118,8 +122,8 @@ def _worker(mode: str, seed: int, draws: int, out: str) -> None:
                 steps=STEPS, eval_every=EVAL_EVERY, n_scenes=SCENES, lr=LR,
                 seed=seed, log_fn=lambda line: None, arkit=True,
                 device="cuda", dtype=torch.bfloat16)
-            results.append(dict(mode=mode, seed=seed, draw=draw,
-                                seconds=time.perf_counter() - t0,
+            results.append(dict(mode=mode, sweep=sweep[0], seed=seed,
+                                draw=draw, seconds=time.perf_counter() - t0,
                                 final=history[-1], history=history))
             with open(Path(out) / f"{mode}-{seed}.json", "w") as f:
                 json.dump(results, f)
@@ -196,7 +200,8 @@ def main(argv=None) -> dict:
     runs = [r for path in sorted(out.glob("*-*.json"))
             for r in json.loads(path.read_text())]
     for r in runs:
-        print(json.dumps({k: r[k] for k in ("mode", "seed", "draw",
+        r.setdefault("sweep", "gather")      # runs from before the field
+        print(json.dumps({k: r[k] for k in ("mode", "sweep", "seed", "draw",
                                             "seconds", "final")}))
     summary = dict(wall_s=time.perf_counter() - t0, exit_codes=codes,
                    **summarize(runs))

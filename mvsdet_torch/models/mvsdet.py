@@ -18,8 +18,10 @@ intrinsics and ARKit's per-view and per-target ones both run, as do the
 aligned head and the ARKit yaw head (`head.with_yaw`), and CostRegNet in
 GroupNorm or BatchNorm mode.  Given a view group (`parallel/`), a scene's
 views are sharded over its ranks as the JAX module's `view_axis` shards
-them (mvsdet_tpu/models/mvsdet.py:283-358).  The plane sweep is the
-bilinear gather (`sweep_method="gather"` of the JAX module).
+them (mvsdet_tpu/models/mvsdet.py:283-358).  The plane sweep is the JAX
+module's default, the two-product shear warp (`sweep_method="mxu"`,
+`ops/plane_sweep_mxu.py`), or with `sweep_method="gather"` the bilinear
+gather (`ops/plane_sweep.py`).
 Public tensors keep the JAX package's channels-last layout.
 
 ``dtype`` is the JAX module's compute dtype: the networks compute in it
@@ -61,6 +63,7 @@ from mvsdet_torch.models.layers import sigmoid
 from mvsdet_torch.models.neck3d import IndoorImVoxelNeck
 from mvsdet_torch.models.resnet import ResNet50
 from mvsdet_torch.ops.plane_sweep import plane_sweep_variance_for_refs
+from mvsdet_torch.ops.plane_sweep_mxu import plane_sweep_variance_mxu
 from mvsdet_torch.ops.sampling import bilinear_resize, linear_resize
 from mvsdet_torch.ops.splat import render_view
 from mvsdet_torch.ops.splat_tiles import render_views_tiled
@@ -87,21 +90,27 @@ def _upsample_valid(valid_count: torch.Tensor, shape3) -> torch.Tensor:
 class MVSDet(nn.Module):
     """Single-scene MVSDet forward, loss and predict.
 
-    ``sweep_remat`` recomputes each sweep chunk (plane sweep and
+    ``sweep_method`` is the plane sweep's warp: "mxu", the two-product
+    shear warp (the JAX module's default), or "gather", the bilinear
+    gather.  ``sweep_remat`` recomputes each sweep chunk (plane sweep and
     CostRegNet) in backward instead of keeping its activations, the
     counterpart of `nn.remat` at mvsdet_tpu/models/mvsdet.py:157.
     ``dtype`` is the networks' compute dtype (float32 or bfloat16).
     """
 
     def __init__(self, cfg: ModelConfig, sweep_chunk: int = 8,
-                 sweep_remat: bool = True,
+                 sweep_method: str = "mxu", sweep_remat: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         if dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"compute dtype float32 or bfloat16, not "
                              f"{dtype}")
+        if sweep_method not in ("mxu", "gather"):
+            raise ValueError(f"sweep_method 'mxu' or 'gather', not "
+                             f"{sweep_method!r}")
         self.cfg = cfg
         self.sweep_chunk = sweep_chunk
+        self.sweep_method = sweep_method
         self.sweep_remat = sweep_remat
         self.dtype = dtype
         c = cfg.backbone.fpn_out_channels
@@ -164,8 +173,14 @@ class MVSDet(nn.Module):
                 c for c in range(1, chunk + 1) if n % c == 0)
 
         def step(ref_ids):
-            var = plane_sweep_variance_for_refs(
-                features, proj44, ref_ids, neighbor_ids[ref_ids], depths)
+            if self.sweep_method == "mxu":
+                var = plane_sweep_variance_mxu(
+                    features, proj44, ref_ids, neighbor_ids[ref_ids],
+                    depths, compute_dtype=self.dtype)
+            else:
+                var = plane_sweep_variance_for_refs(
+                    features, proj44, ref_ids, neighbor_ids[ref_ids],
+                    depths)
             out = self.cost_reg(
                 var.to(self.dtype).permute(0, 4, 1, 2, 3).contiguous(), train)
             out = out.to(torch.float32)
@@ -526,11 +541,11 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 def build_model(cfg: Config, device="cuda",
                 generator: Optional[torch.Generator] = None,
                 dtype: torch.dtype = torch.float32,
-                sweep_chunk: int = 8) -> MVSDet:
+                sweep_chunk: int = 8, sweep_method: str = "mxu") -> MVSDet:
     """An eval-mode `MVSDet` for ``cfg`` computing in ``dtype``, with random
     float32 weights from ``generator`` (default: seeded with
-    ``cfg.seed``), on ``device``; its plane sweep runs ``sweep_chunk``
-    reference views at a time.
+    ``cfg.seed``), on ``device``; its plane sweep (``sweep_method``) runs
+    ``sweep_chunk`` reference views at a time.
 
     Runs on the card unless the caller asks for the CPU; raises when CUDA
     is missing and ``device="cpu"`` was not asked for.
@@ -539,7 +554,8 @@ def build_model(cfg: Config, device="cuda",
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("CUDA is not available: the port runs on the "
                            "card; pass device='cpu' to run it on the CPU")
-    model = MVSDet(cfg.model, sweep_chunk=sweep_chunk, dtype=dtype)
+    model = MVSDet(cfg.model, sweep_chunk=sweep_chunk,
+                   sweep_method=sweep_method, dtype=dtype)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     init_weights(model, generator)

@@ -1,11 +1,10 @@
 """Plane-sweep cost volume: homography warp + variance aggregation.
 
 Port of the gather path of mvsdet_tpu/ops/plane_sweep.py (reference:
-mvsdet.py:438-467, mvs_models/module.py:105-146).  The JAX package's fast
-TPU path, the shear-matmul warp of `plane_sweep_mxu.py`, is a TPU
-discretisation and is not ported; this bilinear gather is the JAX
-package's own oracle.  Layout is channels-last (M, D, H, W, C) at the
-public function, as in the JAX package.  `MVSDet` sweeps a chunk of
+mvsdet.py:438-467, mvs_models/module.py:105-146): the bilinear gather,
+`MVSDet(sweep_method="gather")`.  The default sweep, the two-product
+shear warp, is `plane_sweep_mxu.py`.  Layout is channels-last
+(M, D, H, W, C) at the public function, as in the JAX package.  `MVSDet` sweeps a chunk of
 reference views at a time (`plane_sweep_variance_for_refs`);
 `plane_sweep_variance` sweeps every view and `homography_warp` warps one
 (ref, source) pair.

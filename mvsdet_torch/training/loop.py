@@ -66,7 +66,8 @@ def create_train_state(cfg: Config, device="cuda",
                        steps_per_epoch: int = 1000, sweep_chunk: int = 8,
                        sweep_remat: bool = True,
                        dtype: torch.dtype = torch.float32,
-                       flax_seed: Optional[int] = None) -> TrainState:
+                       flax_seed: Optional[int] = None,
+                       sweep_method: str = "mxu") -> TrainState:
     """A model in train mode with random weights from ``generator``
     (default: seeded with ``cfg.seed``) on ``device``, its AdamW optimizer
     and MultiStepLR scheduler, at step 0.  With ``flax_seed`` the weights
@@ -76,14 +77,16 @@ def create_train_state(cfg: Config, device="cuda",
     ``dtype`` is the model's compute dtype
     (mvsdet_tpu/training/loop.py:37-51): bfloat16 runs the networks in
     bf16, while the parameters, their gradients and the AdamW moments stay
-    float32.
+    float32.  ``sweep_method`` is the model's plane sweep: "mxu", the JAX
+    package's default, or "gather".
 
     Runs on the card unless the caller asks for the CPU; raises when CUDA
     is missing and ``device="cpu"`` was not asked for.
     """
     device = _device_for(device)
     model = MVSDet(cfg.model, sweep_chunk=sweep_chunk,
-                   sweep_remat=sweep_remat, dtype=dtype)
+                   sweep_method=sweep_method, sweep_remat=sweep_remat,
+                   dtype=dtype)
     key = None if flax_seed is None else flax_init.prng_key(flax_seed)
     return _train_state(cfg, model, device, generator, steps_per_epoch,
                         flax_key=key)

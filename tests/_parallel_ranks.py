@@ -124,13 +124,14 @@ def collectives(rank, out, x, w, v):
           gw=wt.grad.numpy(), gv=vt.grad.numpy())
 
 
-def train(rank, out, data, view, cfg, weights, scenes):
+def train(rank, out, data, view, cfg, weights, scenes, sweep_method="mxu"):
     """One sharded step through `fit` of the state in ``weights`` on a
     ``data x view`` mesh, data row d on scene d of the npz ``scenes``,
     asked for a checkpoint after it.  Every rank saves its metrics, a
     digest of its parameters after the step and how many checkpoints it
     wrote; rank 0 also the state after the step and the gradients the
-    update got (averaged, before the clip)."""
+    update got (averaged, before the clip).  The model sweeps with
+    ``sweep_method``."""
     from unittest import mock
 
     from mvsdet_torch.parallel import sharding
@@ -139,7 +140,8 @@ def train(rank, out, data, view, cfg, weights, scenes):
 
     mesh = make_mesh(data, view)
     state = loop.create_train_state(cfg, device="cpu", sweep_chunk=2,
-                                    steps_per_epoch=1)
+                                    steps_per_epoch=1,
+                                    sweep_method=sweep_method)
     state.model.load_state_dict(torch.load(weights, weights_only=True))
     with np.load(scenes) as f:
         prefix = f"{mesh.data_index}/"
@@ -171,18 +173,18 @@ def train(rank, out, data, view, cfg, weights, scenes):
 
 
 def predict(rank, out, cfg, weights, scenes, group_size,
-            diagnostics=False):
+            diagnostics=False, sweep_method="mxu"):
     """`evaluate_scenes` with `make_sharded_predict_fn` (with its
     ``diagnostics``) over a data group of every rank, ``group_size`` scenes
-    a call, on the npz ``scenes``: the metrics and each scene's
-    predictions."""
+    a call, on the npz ``scenes``, the model sweeping with
+    ``sweep_method``: the metrics and each scene's predictions."""
     from mvsdet_torch.evaluation.harness import (evaluate_scenes,
                                                  make_sharded_predict_fn)
     from mvsdet_torch.models.mvsdet import build_model
     from mvsdet_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(dist.get_world_size(), 1)
-    model = build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu", sweep_method=sweep_method)
     model.load_state_dict(torch.load(weights, weights_only=True))
     with np.load(scenes) as f:
         count = len({k.split("/")[0] for k in f.files})

@@ -5,7 +5,9 @@ against the JAX package's.
 `n_reg_outs=7`) on a synthetic ARKit scene of 4 views and 2 targets:
 per-view and per-target intrinsics and 7-column boxes with a yaw.  Both
 packages run the scene with one numpy-seeded variable tree carried across
-by the weight bridge (`MVSDet(sweep_method="gather")` on the JAX side):
+by the weight bridge, both sweeping with the bilinear gather
+(`sweep_method="gather"`; the default sweep in
+`tests/test_torch_port_sweep_mxu.py`):
 
 - predict: rendered to 1e-4, the lifted volume to 1e-5 relative, kept
   boxes, scores and labels under `mask` (the boxes also from JAX's own
@@ -137,7 +139,7 @@ def predicts(setup):
 
     res_j, pred_j, vol_j = jax.tree_util.tree_map(
         np.asarray, jx_run(setup["tree"], setup["batch"]))
-    model = MVSDet(setup["pcfg"].model)
+    model = MVSDet(setup["pcfg"].model, sweep_method="gather")
     load_flax_variables(model, setup["tree"])
     model.eval()
     volume = []
@@ -209,7 +211,7 @@ def step(setup):
     new_state, metrics = jax.jit(lambda s, b: jx_train_step(
         setup["jx_model"], tx, s, b))(state, setup["batch"])
     pt = create_train_state(setup["pcfg"], device="cpu", sweep_chunk=2,
-                            steps_per_epoch=1)
+                            steps_per_epoch=1, sweep_method="gather")
     load_flax_variables(pt.model, tree)
     probe = copy.deepcopy(pt.model)
     probe.loss(tensors(setup["scene"]))[0].backward()
@@ -301,7 +303,8 @@ def test_arkit_losses_downstream_match_jax_bf16(setup, step):
         return torch.from_numpy(np.array(jnp.asarray(x).astype(
             jnp.float32))).to(BF16)
 
-    model = MVSDet(setup["pcfg"].model, sweep_chunk=2, dtype=BF16)
+    model = MVSDet(setup["pcfg"].model, sweep_chunk=2, dtype=BF16,
+                   sweep_method="gather")
     load_flax_variables(model, setup["tree"])
     model.train()
     volume = []

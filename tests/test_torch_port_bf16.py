@@ -595,7 +595,7 @@ def test_sample_depth_breaks_ties_as_jax():
     prob = np.array(f32(jnp.asarray(prob).astype(jnp.bfloat16)))
     off = rng.rand(*prob.shape).astype(np.float32)
     model_j = JxMVSDet(mc_j, sweep_method="gather")
-    model_t = MVSDet(mc_t)
+    model_t = MVSDet(mc_t, sweep_method="gather")
     near, interval = mc_t.near_far_range[0], mc_t.depth_interval
     planes = {}
     for name, o in (("zero offsets", np.zeros_like(off)), ("offsets", off)):
@@ -677,7 +677,7 @@ def model_runs():
 
 def port_model(runs, forced=None):
     model = MVSDet(train_config(port_config.tiny_test_config()).model,
-                   sweep_chunk=2, dtype=BF16)
+                   sweep_chunk=2, sweep_method="gather", dtype=BF16)
     load_flax_variables(model, runs["tree"])
     if forced is not None:
         feats, (prob, off) = forced
@@ -770,7 +770,8 @@ def test_train_step_keeps_float32_state(model_runs):
     are JAX bf16's free-running loss within LOSS_TOL."""
     cfg = train_config(port_config.tiny_test_config())
     state = create_train_state(cfg, device="cpu", sweep_chunk=2,
-                               steps_per_epoch=1, dtype=BF16)
+                               steps_per_epoch=1, dtype=BF16,
+                               sweep_method="gather")
     load_flax_variables(state.model, model_runs["tree"])
     metrics = train_step(state, scene_tensors(model_runs))
     assert state.model.dtype == BF16 and state.step == 1

@@ -67,7 +67,7 @@ def step():
         jx_model, tx, s, b))(state, batch)
     pcfg = batch_norm(train_config(port_config.tiny_test_config()))
     pt = create_train_state(pcfg, device="cpu", sweep_chunk=2,
-                            steps_per_epoch=1)
+                            steps_per_epoch=1, sweep_method="gather")
     load_flax_variables(pt.model, tree)
     initial = copy.deepcopy(pt.model)
     probe = copy.deepcopy(pt.model)
@@ -153,7 +153,8 @@ def test_bridge_maps_the_arkit_and_batch_norm_trees(preset):
         cfg, seed=0, n_views=3, n_targets=1, arkit=preset == "arkit").items()}
     tree = random_variables(JxMVSDet(cfg.model, sweep_method="gather"),
                             batch, method=JxMVSDet.loss)
-    model = MVSDet(change(train_config(port_config.tiny_test_config())).model)
+    model = MVSDet(change(train_config(port_config.tiny_test_config())).model,
+                   sweep_method="gather")
     load_flax_variables(model, tree)
     arrays = flax_to_state_dict(tree)
     state = model.state_dict()

@@ -54,8 +54,10 @@ M17_MODULES = (
     "mvsdet_torch.utils.imageio", "mvsdet_torch.utils.box_vis",
     "mvsdet_torch.utils.ply_export", "mvsdet_torch.utils.profiling",
     "mvsdet_torch.ops.splat", "mvsdet_torch.ops.voxel_lift")
+# the JAX package's default plane sweep, named for the same reason
+SWEEP_MODULES = ("mvsdet_torch.ops.plane_sweep_mxu",)
 NAMED_MODULES = (M13_MODULES + M15_MODULES + M16_MODULES + M18_MODULES
-                 + M17_MODULES)
+                 + M17_MODULES + SWEEP_MODULES)
 
 
 def _leaf(path, shape, rng):
@@ -102,7 +104,8 @@ def tiny_tree():
 
 class TestBridge:
     def test_maps_every_leaf_with_nothing_left_over(self, tiny_tree):
-        model = MVSDet(narrow(port_config.tiny_test_config()).model)
+        model = MVSDet(narrow(port_config.tiny_test_config()).model,
+                       sweep_method="gather")
         load_flax_variables(model, tiny_tree)
         arrays = flax_to_state_dict(tiny_tree)
         n_leaves = len(jax.tree_util.tree_leaves(tiny_tree))
@@ -173,7 +176,8 @@ class TestBridge:
         else:
             head["scales"] = np.ones(4, np.float32)
         tree["params"] = dict(tree["params"], head=head)
-        model = MVSDet(narrow(port_config.tiny_test_config()).model)
+        model = MVSDet(narrow(port_config.tiny_test_config()).model,
+                       sweep_method="gather")
         with pytest.raises((KeyError, ValueError)):
             load_flax_variables(model, tree)
 

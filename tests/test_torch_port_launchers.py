@@ -122,7 +122,7 @@ def jax_eval(fixture_infos, tmp_path_factory):
     scenes = [JxScenePipeline(cfg, training=False)(
         info, np.random.RandomState(i))
         for i, info in enumerate(jx_load_infos(pkl, root, cfg.data.classes))]
-    model = JxMVSDet(cfg.model, sweep_method="gather")
+    model = JxMVSDet(cfg.model)
     batch = {k: jnp.asarray(v) for k, v in scenes[0].items()}
     variables = random_variables(model, batch, method=JxMVSDet.predict)
     detecting_head(variables["params"]["head"], scenes)

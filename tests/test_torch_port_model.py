@@ -1,4 +1,6 @@
-"""The port's whole predict path against JAX `MVSDet(sweep_method="gather")`.
+"""The port's whole predict path against JAX's, both with the bilinear
+gather sweep (`MVSDet(sweep_method="gather")`; the default sweep is in
+`tests/test_torch_port_sweep_mxu.py`).
 
 Both run the same synthetic scene with the same weights (a numpy-seeded
 JAX tree carried across by the bridge) at tiny shapes and narrow widths:
@@ -61,7 +63,8 @@ def runs():
                                                    jx_run(tree, batch))
     pred_j = dict(pred_j, diagnostics=diag_j)
 
-    model = MVSDet(narrow(port_config.tiny_test_config()).model)
+    model = MVSDet(narrow(port_config.tiny_test_config()).model,
+                   sweep_method="gather")
     load_flax_variables(model, tree)
     model.eval()
     pred_t = make_predict_fn(model, device="cpu", diagnostics=True)(scene)

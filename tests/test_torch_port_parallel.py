@@ -184,7 +184,8 @@ def sharded_case(name, tmp):
     weights = save_weights(tmp / f"{name}.pt", pcfg, tree)
     out = tmp / name
     handle = ranks.start(ranks.train, data * view, out, data, view, pcfg,
-                         weights, save_scenes(tmp / f"{name}.npz", scenes))
+                         weights, save_scenes(tmp / f"{name}.npz", scenes),
+                         "gather")
     jx = jax_sharded_step(cfg, scenes, data, view, tree)
     handle.join()
     outs = [ranks.load(out, r) for r in range(data * view)]
@@ -312,7 +313,7 @@ def test_view_sharded_step_matches_jax_and_the_unsharded_gradients(
         tmp_module):
     jx, outs, _, pcfg, scenes, _, weights = sharded_case("view2", tmp_module)
     check_step(jx, outs)
-    model = MVSDet(pcfg.model, sweep_chunk=2).train()
+    model = MVSDet(pcfg.model, sweep_chunk=2, sweep_method="gather").train()
     model.load_state_dict(torch.load(weights, weights_only=True))
     total, aux = model.loss({k: torch.from_numpy(v)
                              for k, v in scenes[0].items()})
@@ -378,14 +379,15 @@ def test_sharded_evaluation_matches_one_scene_at_a_time_and_jax(tmp_path):
     weights = save_weights(tmp_path / "weights.pt", pcfg, variables)
     out = tmp_path / "ranks"
     handle = ranks.start(ranks.predict, 2, out, pcfg, weights,
-                         save_scenes(tmp_path / "scenes.npz", scenes), 2)
+                         save_scenes(tmp_path / "scenes.npz", scenes), 2,
+                         False, "gather")
     n_classes = cfg.model.head.n_classes
     want = jx_harness.evaluate_scenes(
         jx_harness.make_sharded_predict_fn(jx_model, variables,
                                            jx_make_mesh(2, 1)),
         scenes, num_classes=n_classes, group_size=2)
 
-    model = MVSDet(pcfg.model)
+    model = MVSDet(pcfg.model, sweep_method="gather")
     load_flax_variables(model, variables)
     predict = make_predict_fn(model, "cpu")
     single = []
@@ -438,7 +440,8 @@ def test_depth_supervision_with_sharded_views_is_refused(tmp_path):
         train_launcher.train(pcfg, train_launcher.parse_args(
             ["--tiny", "--synthetic", "1", "--view-parallel", "2",
              "--device", "cpu", "--work-dir", str(tmp_path)]))
-    state = create_train_state(pcfg, device="cpu", sweep_chunk=2)
+    state = create_train_state(pcfg, device="cpu", sweep_chunk=2,
+                               sweep_method="gather")
     mesh = port_mesh.Mesh(data=1, view=2, rank=0, data_index=0,
                           view_index=0, view_group=None, data_group=None,
                           world_group=None)

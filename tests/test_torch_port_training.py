@@ -3,7 +3,7 @@
 The head's targets and losses, train-mode BatchNorm, the optimizer, and
 three whole `train_step`s against JAX `train_step` with
 `MVSDet(cfg.model, sweep_method="gather", sweep_chunk=2)` and
-`build_optimizer`, both from one numpy-seeded variable tree carried across
+`build_optimizer` (the port's model also with the gather sweep), both from one numpy-seeded variable tree carried across
 by the weight bridge, at tiny shapes and narrow widths on the CPU.
 """
 
@@ -389,7 +389,7 @@ def compare_steps(lr: float = LR) -> dict:
     jx_metrics, jx_final = jax_steps(cfg, batch, tree)
 
     pt = create_train_state(cfg_port(lr), device="cpu", sweep_chunk=2,
-                            steps_per_epoch=1)
+                            steps_per_epoch=1, sweep_method="gather")
     load_flax_variables(pt.model, tree)
     initial = {k: v.clone() for k, v in pt.model.state_dict().items()}
     tb = {k: torch.from_numpy(np.asarray(v)) for k, v in scene.items()}
@@ -470,7 +470,7 @@ def test_checkpoint_round_trip(steps, tmp_path):
     path = str(tmp_path / "ckpt.pt")
     save_checkpoint(path, state)
     fresh = create_train_state(cfg_port(), device="cpu", sweep_chunk=2,
-                               steps_per_epoch=1,
+                               steps_per_epoch=1, sweep_method="gather",
                                generator=torch.Generator().manual_seed(7))
     load_checkpoint(path, fresh)
     assert fresh.step == state.step == STEPS
@@ -524,7 +524,8 @@ def test_loss_with_depth_supervision_matches_jax():
     pcfg = cfg_port()
     pcfg = dataclasses.replace(pcfg, model=dataclasses.replace(
         pcfg.model, depth_supervision=True))
-    state = create_train_state(pcfg, device="cpu", sweep_chunk=3)
+    state = create_train_state(pcfg, device="cpu", sweep_chunk=3,
+                               sweep_method="gather")
     load_flax_variables(state.model, tree)
     _, got = state.model.loss({k: torch.from_numpy(v)
                                for k, v in scene.items()})
