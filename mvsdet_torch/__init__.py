@@ -30,7 +30,8 @@ does (parameters and optimizer state float32).  The legacy NeRF-Det
 `--vis-dir` add the rendered target depth (the compositor with one
 channel), the lift's GT-depth diagnostics and the per-scene images and
 PLY (`utils/`); `ops/splat.py` is the exact dense renderer behind
-`splat_impl="dense"`, and `utils/profiling.py` times and traces.  The layout
+`splat_impl="dense"`, and `utils/profiling.py` times and marks the
+program's spans (`tests/test_torch_port_spans.py`).  The layout
 mirrors the JAX package so each module's counterpart is found by path.  This package
 imports nothing of JAX or of `mvsdet_tpu`.
 """

@@ -18,6 +18,8 @@ from typing import Dict, Iterable, Iterator
 import numpy as np
 import torch
 
+from mvsdet_torch.utils.profiling import span
+
 
 def stage_batch(batch: Dict[str, np.ndarray],
                 device) -> Dict[str, torch.Tensor]:
@@ -26,13 +28,14 @@ def stage_batch(batch: Dict[str, np.ndarray],
     caching host allocator until their copies finish)."""
     device = torch.device(device)
     out = {}
-    for key, value in batch.items():
-        t = torch.as_tensor(value)
-        if device.type == "cuda":
-            t = t.pin_memory().to(device, non_blocking=True)
-        else:
-            t = t.to(device)
-        out[key] = t
+    with span("data.stage"):
+        for key, value in batch.items():
+            t = torch.as_tensor(value)
+            if device.type == "cuda":
+                t = t.pin_memory().to(device, non_blocking=True)
+            else:
+                t = t.to(device)
+            out[key] = t
     return out
 
 

@@ -32,6 +32,7 @@ from mvsdet_torch.evaluation.indoor_eval import indoor_map
 from mvsdet_torch.evaluation.nvs_metrics import depth_rmse, psnr, ssim
 from mvsdet_torch.models.mvsdet import MVSDet
 from mvsdet_torch.parallel.mesh import Mesh
+from mvsdet_torch.utils import profiling
 
 
 def make_predict_fn(model: MVSDet, device="cuda", diagnostics: bool = False
@@ -175,23 +176,27 @@ def evaluate_scenes(predict_fn: Callable, scenes: Iterable[Dict],
 
     def predictions():
         """(host scene, its prediction) in order, one group ahead."""
+        profiling.item(0)
         with ThreadPoolExecutor(1) as pool:
             nxt = pool.submit(pull)
             while True:
-                item = nxt.result()
+                profiling.item(len(predict_times))
+                with profiling.span("evaluate.data_wait"):
+                    item = nxt.result()
                 if item is sentinel:
                     return
                 nxt = pool.submit(pull)
                 group, staged = item
                 real = len(group)
                 t0 = time.perf_counter()
-                if group_size == 1:
-                    outs = [predict_fn(staged[0])]
-                else:
-                    pad = group_size - real
-                    stacked = predict_fn(staged + staged[-1:] * pad)
-                    outs = [{k: v[j] for k, v in stacked.items()}
-                            for j in range(real)]
+                with profiling.span("evaluate.predict"):
+                    if group_size == 1:
+                        outs = [predict_fn(staged[0])]
+                    else:
+                        pad = group_size - real
+                        stacked = predict_fn(staged + staged[-1:] * pad)
+                        outs = [{k: v[j] for k, v in stacked.items()}
+                                for j in range(real)]
                 dt = (time.perf_counter() - t0) / real
                 for scene, out_np in zip(group, outs):
                     predict_times.append(dt)
@@ -201,34 +206,36 @@ def evaluate_scenes(predict_fn: Callable, scenes: Iterable[Dict],
     psnrs, ssims, d_rmses, mvs_rmses, wgaps, srmses = [], [], [], [], [], []
     predict_times = []
     for si, (scene, out_np) in enumerate(predictions()):
-        mask = out_np["mask"]
-        preds.append({"boxes": out_np["boxes"][mask],
-                      "scores": out_np["scores"][mask],
-                      "labels": out_np["labels"][mask]})
-        gmask = np.asarray(scene["gt_mask"])
-        gts.append({"boxes": np.asarray(scene["gt_boxes"])[gmask],
-                    "labels": np.asarray(scene["gt_labels"])[gmask]})
-        if "rendered" in out_np and "gt_images" in scene:
-            for t in range(out_np["rendered"].shape[0]):
-                r = out_np["rendered"][t]
-                g = np.asarray(scene["gt_images"][t])
-                psnrs.append(psnr(r, g))
-                ssims.append(ssim(r, g))
-        if "rendered_depth" in out_np and "gt_depth" in scene:
-            for t in range(out_np["rendered_depth"].shape[0]):
-                d_rmses.append(depth_rmse(out_np["rendered_depth"][t],
-                                          np.asarray(scene["gt_depth"][t])))
-        if "depth" in scene and "depth_expect" in out_np:
-            # MVSMetric: source depth expectation vs GT at feature res
-            est = out_np["depth_expect"]                        # (N, h, w)
-            gt = np.asarray(scene["depth"], np.float64)
-            mvs_rmses.append(depth_rmse(
-                est, _resize_nearest(gt, est.shape[1:3])))
-        if "weight_gap" in out_np:
-            wgaps.append(float(out_np["weight_gap"]))
-            srmses.append(float(out_np["src_rmse"]))
-        if vis_hook is not None:
-            vis_hook(si, scene, out_np)
+        with profiling.span("evaluate.host_metrics"):
+            mask = out_np["mask"]
+            preds.append({"boxes": out_np["boxes"][mask],
+                          "scores": out_np["scores"][mask],
+                          "labels": out_np["labels"][mask]})
+            gmask = np.asarray(scene["gt_mask"])
+            gts.append({"boxes": np.asarray(scene["gt_boxes"])[gmask],
+                        "labels": np.asarray(scene["gt_labels"])[gmask]})
+            if "rendered" in out_np and "gt_images" in scene:
+                for t in range(out_np["rendered"].shape[0]):
+                    r = out_np["rendered"][t]
+                    g = np.asarray(scene["gt_images"][t])
+                    psnrs.append(psnr(r, g))
+                    ssims.append(ssim(r, g))
+            if "rendered_depth" in out_np and "gt_depth" in scene:
+                for t in range(out_np["rendered_depth"].shape[0]):
+                    d_rmses.append(depth_rmse(
+                        out_np["rendered_depth"][t],
+                        np.asarray(scene["gt_depth"][t])))
+            if "depth" in scene and "depth_expect" in out_np:
+                # MVSMetric: source depth expectation vs GT at feature res
+                est = out_np["depth_expect"]                    # (N, h, w)
+                gt = np.asarray(scene["depth"], np.float64)
+                mvs_rmses.append(depth_rmse(
+                    est, _resize_nearest(gt, est.shape[1:3])))
+            if "weight_gap" in out_np:
+                wgaps.append(float(out_np["weight_gap"]))
+                srmses.append(float(out_np["src_rmse"]))
+            if vis_hook is not None:
+                vis_hook(si, scene, out_np)
 
     results = indoor_map(preds, gts, num_classes=num_classes)
     if psnrs:

@@ -19,6 +19,7 @@ from mvsdet_torch.models.layers import Conv3d, at_least, sigmoid, softplus
 from mvsdet_torch.parallel.collectives import pmean
 from mvsdet_torch.ops.nms import (aligned_3d_nms, corner_to_center,
                                   rotated_3d_nms, rotated_iou_3d_soft_pairs)
+from mvsdet_torch.utils.profiling import span
 
 
 def _flat(t: torch.Tensor) -> torch.Tensor:
@@ -274,9 +275,10 @@ def head_predict(head_outs, points_per_level: List[torch.Tensor],
     """
     boxes, best_score, labels = _candidates(
         head_outs, points_per_level, valid_per_level, cfg, decode_bbox)
-    keep_idx, keep_mask = aligned_3d_nms(
-        boxes, best_score, labels, cfg.iou_thr, best_score > cfg.score_thr,
-        cfg.max_detections)
+    with span("mvsdet.nms"):
+        keep_idx, keep_mask = aligned_3d_nms(
+            boxes, best_score, labels, cfg.iou_thr,
+            best_score > cfg.score_thr, cfg.max_detections)
     return dict(boxes=corner_to_center(boxes[keep_idx]),
                 scores=best_score[keep_idx] * keep_mask,
                 labels=labels[keep_idx],
@@ -444,9 +446,10 @@ def head_predict_rotated(head_outs, points_per_level: List[torch.Tensor],
     boxes, best_score, labels = _candidates(
         head_outs, points_per_level, valid_per_level, cfg,
         decode_bbox_rotated)
-    keep_idx, keep_mask = rotated_3d_nms(
-        boxes, best_score, labels, cfg.iou_thr, best_score > cfg.score_thr,
-        cfg.max_detections)
+    with span("mvsdet.nms"):
+        keep_idx, keep_mask = rotated_3d_nms(
+            boxes, best_score, labels, cfg.iou_thr,
+            best_score > cfg.score_thr, cfg.max_detections)
     return dict(boxes=boxes[keep_idx],
                 scores=best_score[keep_idx] * keep_mask,
                 labels=labels[keep_idx],

@@ -72,6 +72,7 @@ from mvsdet_torch.ops.voxel_lift import (finalize_volume,
                                          lift_features_to_voxels)
 from mvsdet_torch.parallel.collectives import all_gather_views, psum
 from mvsdet_torch.utils.precision import feinsum
+from mvsdet_torch.utils.profiling import span
 
 
 DEPTH_SUPERVISION_SHARDED = (
@@ -173,18 +174,21 @@ class MVSDet(nn.Module):
                 c for c in range(1, chunk + 1) if n % c == 0)
 
         def step(ref_ids):
-            if self.sweep_method == "mxu":
-                var = plane_sweep_variance_mxu(
-                    features, proj44, ref_ids, neighbor_ids[ref_ids],
-                    depths, compute_dtype=self.dtype)
-            else:
-                var = plane_sweep_variance_for_refs(
-                    features, proj44, ref_ids, neighbor_ids[ref_ids],
-                    depths)
-            out = self.cost_reg(
-                var.to(self.dtype).permute(0, 4, 1, 2, 3).contiguous(), train)
-            out = out.to(torch.float32)
-            return torch.softmax(out[:, 0], dim=1), sigmoid(out[:, 1])
+            # its own span, so that the recompute in backward is one
+            with span("mvsdet.sweep"):
+                if self.sweep_method == "mxu":
+                    var = plane_sweep_variance_mxu(
+                        features, proj44, ref_ids, neighbor_ids[ref_ids],
+                        depths, compute_dtype=self.dtype)
+                else:
+                    var = plane_sweep_variance_for_refs(
+                        features, proj44, ref_ids, neighbor_ids[ref_ids],
+                        depths)
+                out = self.cost_reg(
+                    var.to(self.dtype).permute(0, 4, 1, 2, 3).contiguous(),
+                    train)
+                out = out.to(torch.float32)
+                return torch.softmax(out[:, 0], dim=1), sigmoid(out[:, 1])
 
         remat = (self.sweep_remat and torch.is_grad_enabled()
                  and not batch_stats)
@@ -298,7 +302,8 @@ class MVSDet(nn.Module):
         (T, 4, 4) one per target.
         """
         mc = self.cfg
-        local = self.image_features(batch["images"].to(self.dtype))
+        with span("mvsdet.backbone"):
+            local = self.image_features(batch["images"].to(self.dtype))
         local = local.to(torch.float32)     # the sweep's and the splats'
         if view is not None:
             feats = all_gather_views(local, view)
@@ -317,12 +322,14 @@ class MVSDet(nn.Module):
         neighbor_ids = knn_camera_neighbors(
             src_c2w[:, :3, 3], min(mc.plane_sweep_neighbors, n - 1))
 
-        prob, off = self.depth_probabilities(feats, proj44, neighbor_ids,
-                                             train, ref_ids)
+        with span("mvsdet.sweep"):
+            prob, off = self.depth_probabilities(feats, proj44, neighbor_ids,
+                                                 train, ref_ids)
         if view is not None:
             prob = all_gather_views(prob, view)
             off = all_gather_views(off, view)
-        est_depth, est_prob, depth_expect = self.sample_depth(prob, off)
+        with span("mvsdet.sample_depth"):
+            est_depth, est_prob, depth_expect = self.sample_depth(prob, off)
 
         points = voxel_points(mc.n_voxels, mc.voxel_size,
                               batch["origin"]).reshape(3, -1).T  # (V, 3)
@@ -330,26 +337,29 @@ class MVSDet(nn.Module):
         # the FPN's own values) and accumulates in float32
         own = slice(None) if view is None \
             else slice(first, first + n_local)
-        vol_sum, valid_cnt = lift_features_to_voxels(
-            feats[own].to(self.dtype), proj44[own, :3, :4], est_depth[own],
-            est_prob[own], points, mc.voxel_size[2])
-        if view is not None:
-            vol_sum = psum(vol_sum, view)
-            valid_cnt = psum(valid_cnt, view)
-        volume = finalize_volume(vol_sum, valid_cnt)          # (V, C)
-        nx, ny, nz = mc.n_voxels
-        volume = volume.to(self.dtype).reshape(nx, ny, nz, -1) \
-            .permute(3, 0, 1, 2)[None]
-        levels = self.neck3d(volume.contiguous(), train)
+        with span("mvsdet.lift"):
+            vol_sum, valid_cnt = lift_features_to_voxels(
+                feats[own].to(self.dtype), proj44[own, :3, :4],
+                est_depth[own], est_prob[own], points, mc.voxel_size[2])
+            if view is not None:
+                vol_sum = psum(vol_sum, view)
+                valid_cnt = psum(valid_cnt, view)
+            volume = finalize_volume(vol_sum, valid_cnt)      # (V, C)
+            nx, ny, nz = mc.n_voxels
+            volume = volume.to(self.dtype).reshape(nx, ny, nz, -1) \
+                .permute(3, 0, 1, 2)[None]
+        with span("mvsdet.neck"):
+            levels = self.neck3d(volume.contiguous(), train)
 
         gaussians = None
         if "tgt_c2w" in batch:
             denorm = batch["denorm_images"]
             if view is not None:
                 denorm = all_gather_views(denorm, view)
-            gaussians = self.gaussian_branch(
-                feats, denorm, prob, depth_expect, src_c2w, feat_intrinsic,
-                batch["tgt_c2w"])
+            with span("mvsdet.gaussians"):
+                gaussians = self.gaussian_branch(
+                    feats, denorm, prob, depth_expect, src_c2w,
+                    feat_intrinsic, batch["tgt_c2w"])
         return dict(levels=levels, valid_count=valid_cnt.reshape(nx, ny, nz),
                     est_depth=est_depth, est_prob=est_prob,
                     depth_expect=depth_expect, gaussians=gaussians, prob=prob,
@@ -419,13 +429,16 @@ class MVSDet(nn.Module):
         """Raw outputs (`MVSDet.__call__(train, view_axis)`); ``view`` as
         `extract_feat` takes it."""
         out = self.extract_feat(batch, train, view)
-        head_outs = self.head(out["levels"])
+        with span("mvsdet.head"):
+            head_outs = self.head(out["levels"])
         pts, valids = self._head_points_and_valid(out["valid_count"],
                                                   batch["origin"])
         result = dict(head_outs=head_outs, points=pts, valids=valids, **out)
         if out["gaussians"] is not None and "gt_images" in batch:
-            result["rendered"] = self.render_targets(
-                out["gaussians"], batch, tuple(batch["gt_images"].shape[1:3]))
+            with span("mvsdet.render"):
+                result["rendered"] = self.render_targets(
+                    out["gaussians"], batch,
+                    tuple(batch["gt_images"].shape[1:3]))
         return result
 
     def loss(self, batch: Dict[str, torch.Tensor], data_group=None,
@@ -450,24 +463,25 @@ class MVSDet(nn.Module):
         if view is not None and mc.depth_supervision:
             raise ValueError(DEPTH_SUPERVISION_SHARDED)
         result = self(batch, train=True, view=view)
-        loss_fn = head_loss_rotated if mc.head.with_yaw else head_loss
-        losses, aux = loss_fn(
-            result["head_outs"], result["points"], result["valids"],
-            batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"], mc.head,
-            data_group=data_group)
-        if "rendered" in result and mc.rgb_supervision:
-            losses["loss_nvs"] = torch.mean(
-                (result["rendered"] - batch["gt_images"]) ** 2)
-        if mc.depth_supervision and "depth" in batch:
-            est = result["depth_expect"]                      # (N, h, w)
-            gt = bilinear_resize(batch["depth"][..., None],
-                                 tuple(est.shape[1:3]))[..., 0]
-            mask = gt > 0
-            losses["loss_depth"] = (
-                torch.where(mask, (est - gt).abs(), 0.0).sum()
-                / torch.clamp_min(mask.sum().to(est.dtype), 1.0))
-        total = sum(losses.values())
-        aux.update(losses)
+        with span("mvsdet.loss"):
+            loss_fn = head_loss_rotated if mc.head.with_yaw else head_loss
+            losses, aux = loss_fn(
+                result["head_outs"], result["points"], result["valids"],
+                batch["gt_boxes"], batch["gt_labels"], batch["gt_mask"],
+                mc.head, data_group=data_group)
+            if "rendered" in result and mc.rgb_supervision:
+                losses["loss_nvs"] = torch.mean(
+                    (result["rendered"] - batch["gt_images"]) ** 2)
+            if mc.depth_supervision and "depth" in batch:
+                est = result["depth_expect"]                  # (N, h, w)
+                gt = bilinear_resize(batch["depth"][..., None],
+                                     tuple(est.shape[1:3]))[..., 0]
+                mask = gt > 0
+                losses["loss_depth"] = (
+                    torch.where(mask, (est - gt).abs(), 0.0).sum()
+                    / torch.clamp_min(mask.sum().to(est.dtype), 1.0))
+            total = sum(losses.values())
+            aux.update(losses)
         return total, aux
 
     @torch.no_grad()

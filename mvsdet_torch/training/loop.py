@@ -39,6 +39,7 @@ from mvsdet_torch.models.resnet import (load_torchvision_checkpoint,
 from mvsdet_torch.parallel.mesh import Mesh
 from mvsdet_torch.parallel.sharding import make_sharded_train_step, shard_batch
 from mvsdet_torch.training.optim import apply_gradients, build_optimizer
+from mvsdet_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -152,10 +153,15 @@ def train_step(state: TrainState,
     device.  Updates ``state`` in place and returns the metrics (`loss`,
     every loss term, `n_pos`) as device tensors."""
     state.optimizer.zero_grad(set_to_none=True)
-    total, aux = state.model.loss(batch)
-    total.backward()
-    apply_gradients(state)
-    return {"loss": total.detach(), **{k: v.detach() for k, v in aux.items()}}
+    with profiling.span("train_step.forward"):
+        total, aux = state.model.loss(batch)
+        metrics = {"loss": total.detach(),
+                   **{k: v.detach() for k, v in aux.items()}}
+    with profiling.span("train_step.backward"):
+        total.backward()
+    with profiling.span("train_step.optimizer"):
+        apply_gradients(state)
+    return metrics
 
 
 def nerfdet_train_step(state: TrainState, batch: Dict[str, torch.Tensor]
@@ -220,7 +226,10 @@ def fit(state: TrainState, batches: Iterable[Dict], num_steps: int,
     it = prefetch_iterator(batches, device)
     try:
         for i in range(num_steps):
-            metrics = step(next(it))
+            profiling.item(state.step)
+            with profiling.span("fit.data_wait"):
+                batch = next(it)
+            metrics = step(batch)
             if log_fn is not None and (i % log_every == 0
                                        or i == num_steps - 1):
                 log_fn(i, {k: float(v) for k, v in metrics.items()})

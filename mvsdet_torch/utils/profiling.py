@@ -1,24 +1,155 @@
-"""Timing, tracing and memory helpers (port of mvsdet_tpu/utils/profiling.py).
+"""Timing, memory and span helpers (port of mvsdet_tpu/utils/profiling.py).
 
 `hard_sync` waits for a computation's completion, `timed` takes the
 least time of a few calls (CUDA events on the card, the host clock on
-the CPU), `dispatch_floor` is that time for a trivial call, `trace`
-records a `torch.profiler` trace, `StepTimer` times steps after a
-warm-up and summarises them, and `device_memory_stats` reads
-`torch.cuda.memory_stats`.  The port's own profilers
-(`tools/profile_train.py`, `tools/profile_predict.py`) stand beside
-these.
+the CPU), and `device_memory_stats` reads `torch.cuda.memory_stats`.
+
+`span(name)` marks a stretch of the program: the data waits of `fit` and
+`evaluate_scenes`, the phases of `train_step`, the staging thread's
+`stage_batch`, the layers of `MVSDet` and the NMS.  A span is live only
+while `recording()` is on or a `torch.profiler` traces the process;
+otherwise it is one shared no-op context, returned after one check.
+Inside `recording()` each span is kept (name, thread, parent, item,
+start and end on `time.perf_counter_ns`); under a profiler it is also a
+host range on the profiler's clock beside the kernels it launches, an op
+range (`_RecordFunctionFast`), not the user annotation `record_function`
+makes: the profiler copies an annotation onto the device timeline as a
+device event, which a reader of the trace would take for a kernel.
+`item(i)` sets the step or scene that the spans opened after it belong
+to.
 """
 
 from __future__ import annotations
 
 import contextlib
-import os
+import dataclasses
+import itertools
+import threading
 import time
 from typing import Dict, Iterator, List, Optional, Set
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _torch_profiler
+
+# the most spans one `recording()` keeps; later ones are counted, not kept
+MAX_SPANS = 1 << 20
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """One closed span: ``parent`` is the ``id`` of the span that was
+    innermost on the same thread when it opened (None at the thread's
+    top); ``item`` the step or scene set by `item` (None before any)."""
+    id: int
+    name: str
+    thread: int
+    parent: Optional[int]
+    item: Optional[int]
+    start_ns: int
+    end_ns: int
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) / 1e9
+
+
+class Spans(list):
+    """The spans of one `recording()` block in the order they closed;
+    ``dropped`` counts those past `MAX_SPANS`."""
+    dropped = 0
+
+
+class _Recorder:
+    def __init__(self):
+        self.on = False
+        self.item: Optional[int] = None
+        self.lock = threading.Lock()
+        self.ids = itertools.count()
+        self.local = threading.local()
+        self.spans = Spans()        # the current `recording()`'s
+
+    def stack(self) -> List[int]:
+        stack = getattr(self.local, "stack", None)
+        if stack is None:
+            stack = self.local.stack = []
+        return stack
+
+    def add(self, span: Span, spans: Spans) -> None:
+        with self.lock:
+            if len(spans) < MAX_SPANS:
+                spans.append(span)
+            else:
+                spans.dropped += 1
+
+
+_REC = _Recorder()
+_OFF = contextlib.nullcontext()
+
+
+class _Live:
+    """A span that is live: kept while recording, a host range while a
+    profiler is active."""
+
+    __slots__ = ("name", "spans", "id", "parent", "item", "range", "start")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        rec = _REC
+        self.spans = rec.spans if rec.on else None
+        if self.spans is not None:
+            stack = rec.stack()
+            self.parent = stack[-1] if stack else None
+            self.id = next(rec.ids)
+            self.item = rec.item
+            stack.append(self.id)
+        self.range = None
+        if _torch_profiler._is_profiler_enabled:
+            self.range = torch._C._profiler._RecordFunctionFast(self.name)
+            self.range.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        if self.spans is not None:
+            _REC.stack().pop()
+            _REC.add(Span(self.id, self.name, threading.get_ident(),
+                          self.parent, self.item, self.start, end),
+                     self.spans)
+        return False
+
+
+def span(name: str):
+    """A context marking ``name``'s stretch of the program: live while
+    `recording()` is on or a `torch.profiler` is active, else a shared
+    no-op."""
+    if _REC.on or _torch_profiler._is_profiler_enabled:
+        return _Live(name)
+    return _OFF
+
+
+def item(index: Optional[int]) -> None:
+    """The step or scene that spans opened from now on belong to (on
+    every thread)."""
+    _REC.item = index
+
+
+@contextlib.contextmanager
+def recording() -> Iterator[Spans]:
+    """Keep every span that closes inside the block in the yielded list,
+    to be read when the block ends.  Blocks do not nest."""
+    if _REC.on:
+        raise RuntimeError("recording() is already on")
+    spans = _REC.spans = Spans()
+    _REC.on = True
+    try:
+        yield spans
+    finally:
+        _REC.on = False
 
 
 def _leaves(out) -> Iterator[torch.Tensor]:
@@ -73,65 +204,6 @@ def timed(fn, *args, iters: int = 5, warmup: int = 2) -> float:
             hard_sync(fn(*args))
             times.append(time.perf_counter() - t0)
     return min(times)
-
-
-def dispatch_floor(iters: int = 5, device="cuda") -> float:
-    """`timed` of one trivial add on ``device``: the floor every `timed`
-    result there carries.  Report it beside micro-benchmark times."""
-    a = torch.ones((8, 8), device=device)
-    return timed(lambda a: a + 1.0, a, iters=iters)
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """Record a `torch.profiler` trace (host, and the card where there is
-    one) of the enclosed code into ``log_dir/trace.json`` (Chrome trace
-    format; chrome://tracing or Perfetto)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
-
-
-class StepTimer:
-    """Wall-clock step timing with a warm-up skip and a percentile
-    summary: each ``with timer:`` block is one step, and the first
-    ``warmup`` steps are not kept."""
-
-    def __init__(self, warmup: int = 2):
-        self.warmup = warmup
-        self._times: List[float] = []
-        self._count = 0
-        self._t0: Optional[float] = None
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        dt = time.perf_counter() - self._t0
-        self._count += 1
-        if self._count > self.warmup:
-            self._times.append(dt)
-
-    def summary(self) -> Dict[str, float]:
-        """mean_s, p50_s, p90_s, min_s and steps of the kept steps; {}
-        when none was kept."""
-        if not self._times:
-            return {}
-        t = np.asarray(self._times)
-        return {
-            "mean_s": float(t.mean()),
-            "p50_s": float(np.percentile(t, 50)),
-            "p90_s": float(np.percentile(t, 90)),
-            "min_s": float(t.min()),
-            "steps": len(self._times),
-        }
 
 
 def device_memory_stats() -> Dict[str, Dict[str, int]]:

@@ -18,7 +18,7 @@ not a multiple of 16):
 - `MVSDet` with `splat_impl="dense"` against the port's own tiled model
   (no JAX compile): predict with its diagnostics, and one loss and its
   gradients;
-- `utils/profiling.py`'s `StepTimer` and `timed` on the CPU.
+- `utils/profiling.py`'s `timed` and `hard_sync` on the CPU.
 """
 
 import dataclasses
@@ -311,18 +311,6 @@ def test_dense_model_loss_and_gradients_match_the_tiled(models):
 
 
 # -- profiling ---------------------------------------------------------------
-
-def test_step_timer_keeps_the_steps_after_its_warm_up():
-    timer = profiling.StepTimer(warmup=2)
-    assert timer.summary() == {}
-    for _ in range(5):
-        with timer:
-            pass
-    summary = timer.summary()
-    assert summary["steps"] == 3
-    assert 0 <= summary["min_s"] <= summary["p50_s"] <= summary["p90_s"]
-    assert summary["mean_s"] >= summary["min_s"]
-
 
 def test_timed_and_hard_sync_on_the_cpu():
     calls = []
