@@ -11,10 +11,10 @@ Phases, each printed as one JSON line:
 
   device   the card's name and power limit (as nvidia-smi prints them, on
            a line of their own), torch and CUDA versions
-  build    compile the five kernels and the lift backward's row index
-           from the four sources in `mvsdet_torch/ops/csrc` (and the
-           header the compositor's two share) for sm_90a, one nvcc per
-           source, all started together
+  build    compile the five kernels, the lift backward's row index and
+           the NMS's two kernels from the five sources in
+           `mvsdet_torch/ops/csrc` (and the header the compositor's two
+           share) for sm_90a, one nvcc per source, all started together
   K1       the tile compositor against its plain version on random tables
            at the predict (T=80) and training (T=160) shapes, K=2048, C=3,
            30% empty slots: max abs error <= 1e-4, and a second launch
@@ -53,13 +53,14 @@ Phases, each printed as one JSON line:
   predict  `scannet_config()` at full width with random weights from a
            seeded generator, three synthetic scenes of 80 source views
            (240x320) and one target (120x160) through `make_predict_fn`,
-           launch counts set to 0 just before and read just after (K1 and
-           K3 once per scene, the backward kernels never); outputs finite
-           and of the expected shapes; then one scene again with the plain
-           versions in place of the kernels (`predict_vs_plain`): rendered
-           <= 1e-4, lifted volume <= 1e-5 relative, kept boxes and labels
-           equal under the mask.  Run in float32, then with the model
-           computing in bf16 (`dtype` in each line), where every K3
+           launch counts set to 0 just before and read just after (K1,
+           K3 and the NMS kernels' `nms3d` once per scene, the backward
+           kernels never); outputs finite and of the expected shapes; then
+           one scene again with the plain versions in place of the kernels
+           (`predict_vs_plain`; the NMS's `aligned_3d_nms_reference`):
+           rendered <= 1e-4, lifted volume <= 1e-5 relative, kept boxes
+           and labels equal under the mask.  Run in float32, then with the
+           model computing in bf16 (`dtype` in each line), where every K3
            launch is its bf16 variant
   diagnostics
            the same three scenes through `make_predict_fn(...,
@@ -125,10 +126,10 @@ Phases, each printed as one JSON line:
            head, 17 classes) with seeded random weights, three synthetic
            ARKit scenes of 100 source views (the preset's 101 test views
            less the target; each view its own K) and one target through
-           `make_predict_fn`, as `predict` (K1 and K3 once per scene,
-           boxes (256, 7) after the exact rotated NMS), and
-           `arkit_predict_vs_plain` as `predict_vs_plain`; float32, then
-           bf16
+           `make_predict_fn`, as `predict` (K1, K3 and `nms3d` once per
+           scene, boxes (256, 7) after the exact rotated NMS), and
+           `arkit_predict_vs_plain` as `predict_vs_plain` (the NMS's
+           `rotated_3d_nms_reference`); float32, then bf16
   arkit_train
            `arkit_config()`, one synthetic ARKit scene of 40 source views
            and 2 targets (each its own K), 3 steps through `fit` as
@@ -322,12 +323,21 @@ Phases, each printed as one JSON line:
            `weighted_gather_sum_arkit_predict`,
            `weighted_gather_sum_bf16_arkit_predict`).  Every K3 row is
            bit-equal to its plain version, and each bf16 K3 row to the
-           float32 kernel on the widened rows
+           float32 kernel on the widened rows.  Last the NMS kernels
+           (`nms3d_predict`, `nms3d_bf16_predict`, `nms3d_arkit_predict`,
+           `nms3d_bf16_arkit_predict`) on the candidates each predict
+           handed the NMS (2,400 boxes): the picks equal to the plain
+           version's, the kernel's IoU within 1e-5 of the plain IoU, the
+           calls in the predict runs, the kernel path's time and its mask's
+           and greedy pass's alone, the plain version's, the bound; and
+           (`all_valid`) the picks and times with every candidate valid,
+           the load of the benchmark's predicts
 
     python3 chip_smoke.py --save-kernel-inputs PATH
 
 also saves the inputs the step and the predict gave K1, K2, K3, K4 and K5
-(and the bf16 step and predict K3, the bf16 step K4 and K5), on which
+(and the bf16 step and predict K3, the bf16 step K4 and K5, and the
+ScanNet and ARKit predicts' NMS), on which
 `mvsdet_torch/tools/time_kernels.py` times those kernels of any checkout
 with this script's `cuda_ms`.
 
@@ -372,7 +382,12 @@ QUEUE_AHEAD_CYCLES = 10_000_000
 # wait, 20 would not
 BACKWARD_REPS = 8
 SOURCES = ("composite_tiles", "composite_tiles_bwd", "weighted_gather_sum",
-           "weighted_gather_sum_bwd")
+           "weighted_gather_sum_bwd", "nms3d")
+# float32 operations of one same-class pair's IoU in the NMS (the other
+# pairs only compare classes): the aligned IoU's ~20; the exact rotated
+# one's four clip steps over ~5 live vertices of ~22 operations, the
+# shoelace sum and the union
+NMS_PAIR_OPS = {False: 20, True: 4 * 5 * 22 + 8 * 3 + 10}
 # the metrics a diagnostics evaluation adds (`evaluate_scenes`)
 DIAGNOSTICS_METRICS = ("depth_rmse", "weight_gap", "src_rmse")
 # the Gaussians of the dense renderer's check: 8 source views' worth
@@ -749,6 +764,16 @@ def bound(nbytes: int, ops: int):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = ops / PEAK_F32_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nms_bound(boxes, scores, classes, max_out: int, rotated: bool):
+    """The NMS's least time: its inputs read and its picks written once,
+    and each same-class pair's IoU (`NMS_PAIR_OPS`)."""
+    m = boxes.shape[0]
+    same_class = int((classes[:, None] == classes[None]).sum())
+    n_bytes = (boxes.numel() * boxes.element_size()
+               + m * (scores.element_size() + 8 + 1) + max_out * (8 + 1))
+    return bound(n_bytes, same_class * NMS_PAIR_OPS[rotated]) + (same_class,)
 
 
 def embedding_bag_fn(feat, pix, weight):
@@ -2304,8 +2329,9 @@ def main(argv=None) -> int:
     parser.add_argument(
         "--save-kernel-inputs", metavar="PATH",
         help="also torch.save the inputs the training step and the predict "
-             "gave K1-K5, the bf16 step K3, K4 and K5 and the bf16 predict "
-             "K3 (for mvsdet_torch/tools/time_kernels.py)")
+             "gave K1-K5, the bf16 step K3, K4 and K5, the bf16 predict "
+             "K3 and the float32 predicts the NMS (for "
+             "mvsdet_torch/tools/time_kernels.py)")
     parser.add_argument(
         "--launch-rank", metavar="DIR",
         help="run as one torchrun process of launch_train_parallel: the "
@@ -2332,8 +2358,9 @@ def main(argv=None) -> int:
     from mvsdet_torch.evaluation import harness
     from mvsdet_torch.evaluation.harness import make_predict_fn
     from mvsdet_torch.evaluation.indoor_eval import indoor_map
+    from mvsdet_torch.models import head as head_module
     from mvsdet_torch.models.mvsdet import build_model
-    from mvsdet_torch.ops import (build, lift_kernel, splat_kernel,
+    from mvsdet_torch.ops import (build, lift_kernel, nms, splat_kernel,
                                   splat_tiles, voxel_lift)
     from mvsdet_torch.ops.lift_kernel import (
         lift_rows, lift_rows_reference, weighted_gather_sum,
@@ -2569,9 +2596,10 @@ def main(argv=None) -> int:
 
     def predict_phases(cfg, scenes, dtype, phase="predict"):
         """A predict of each scene through make_predict_fn with the launch
-        counts set to 0 just before and read just after, then the first
-        scene with the kernels against it with the plain versions.
-        Returns the launches and the inputs K1 and K3 got."""
+        counts set to 0 just before and read just after (the NMS kernels'
+        calls, `nms3d.launches`, too), then the first scene with the
+        kernels against it with the plain versions.  Returns the launches,
+        the inputs K1 and K3 got, and the NMS's inputs and calls."""
         label = str(dtype).replace("torch.", "")
         mc = cfg.model
         n_scenes = len(scenes)
@@ -2580,6 +2608,7 @@ def main(argv=None) -> int:
         predict = make_predict_fn(model)
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
+        nms.nms3d.launches = 0
         preds = []
         for s, scene in enumerate(scenes):
             t0 = time.perf_counter()
@@ -2588,9 +2617,10 @@ def main(argv=None) -> int:
                  latency_ms=(time.perf_counter() - t0) * 1e3,
                  kept_boxes=int(preds[-1]["mask"].sum()))
         launches, bf16_launches = read_launches()
+        nms_calls = nms.nms3d.launches
         emit(phase=phase, dtype=label, scenes=n_scenes,
              views=cfg.data.n_src_test, launches=launches,
-             bf16_launches=bf16_launches,
+             bf16_launches=bf16_launches, nms3d_launches=nms_calls,
              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
         check_launches(
             launches, bf16_launches,
@@ -2600,6 +2630,8 @@ def main(argv=None) -> int:
             {name: n_scenes if (name == "weighted_gather_sum"
                                 and dtype == bf16) else 0
              for name in bf16_launches}, f"{n_scenes} {label} {phase}s")
+        check(nms_calls == n_scenes, f"{n_scenes} {label} {phase}s: the NMS "
+                                     f"kernels called {nms_calls} times")
         md = mc.head.max_detections
         box_dim = 7 if mc.head.with_yaw else 6
         shapes = dict(boxes=(md, box_dim), scores=(md,), labels=(md,),
@@ -2617,16 +2649,21 @@ def main(argv=None) -> int:
         # bit-reproducible convolutions, so that the two predicts differ
         # only where the kernels and their plain versions differ
         torch.backends.cudnn.deterministic = True
+        nms_name = "rotated_3d_nms" if mc.head.with_yaw else "aligned_3d_nms"
         runs = {}
-        for run, lift_fn, comp_fn in (
-                ("kernel", weighted_gather_sum, composite_tiles),
+        for run, lift_fn, comp_fn, nms_fn in (
+                ("kernel", weighted_gather_sum, composite_tiles,
+                 getattr(nms, nms_name)),
                 ("plain", weighted_gather_sum_reference,
-                 composite_tiles_reference)):
+                 composite_tiles_reference,
+                 getattr(nms, f"{nms_name}_reference"))):
             lift, comp = Recorder(lift_fn), Recorder(comp_fn)
+            boxes_nms = Recorder(nms_fn)
             with mock.patch.object(voxel_lift, "weighted_gather_sum", lift), \
-                    mock.patch.object(splat_tiles, "composite_tiles", comp):
-                runs[run] = (predict(scenes[0]), lift, comp)
-        (pk, lk, ck), (pp, lp, _) = runs["kernel"], runs["plain"]
+                    mock.patch.object(splat_tiles, "composite_tiles", comp), \
+                    mock.patch.object(head_module, nms_name, boxes_nms):
+                runs[run] = (predict(scenes[0]), lift, comp, boxes_nms)
+        (pk, lk, ck, nk), (pp, lp, _, _) = runs["kernel"], runs["plain"]
         check(lk.args[0].dtype == dtype,
               f"the lift gathered {lk.args[0].dtype} rows in a {label} model")
         vol_rel = rel_err(lk.out, lp.out)
@@ -2649,10 +2686,12 @@ def main(argv=None) -> int:
         check(boxes_equal, f"{phase} {label}: kept boxes or labels differ "
                            f"under the mask")
         k1_args, k3_args = detached(ck.args), detached(lk.args)
+        nms_args = detached(nk.args)
         torch.backends.cudnn.deterministic = False
-        del model, predict, preds, runs, pk, pp, lk, lp, ck
+        del model, predict, preds, runs, pk, pp, lk, lp, ck, nk
         torch.cuda.empty_cache()
-        return launches, bf16_launches, k1_args, k3_args
+        return launches, bf16_launches, k1_args, k3_args, (nms_args,
+                                                           nms_calls)
 
     def diagnostics_phases(cfg, scenes, dtype):
         """`diagnostics`: each scene through make_predict_fn with the
@@ -3330,14 +3369,14 @@ def main(argv=None) -> int:
     scenes = [make_synthetic_scene(cfg, seed=s, n_views=cfg.data.n_src_test,
                                    n_targets=cfg.data.nerf_target_views_test)
               for s in range(N_SCENES)]
-    predict_launches, _, k1_predict_args, k3_predict_args = predict_phases(
-        cfg, scenes, torch.float32)
+    predict_launches, _, k1_predict_args, k3_predict_args, nms_predict = \
+        predict_phases(cfg, scenes, torch.float32)
     cull = cull_check(k1_predict_args[0], k1_predict_args[2])
     emit(phase="cull", tables="predict", tiles=k1_predict_args[0].shape[0],
          k=k1_predict_args[0].shape[2], **cull)
     check_cull(cull, "predict")
-    _, predict_bf16_launches, _, k3b_predict_args = predict_phases(
-        cfg, scenes, bf16)
+    _, predict_bf16_launches, _, k3b_predict_args, nms_bf16_predict = \
+        predict_phases(cfg, scenes, bf16)
     diag_launches, diag_c1_launches, k1_c1_args = diagnostics_phases(
         cfg, scenes, torch.float32)
     diagnostics_phases(cfg, scenes, bf16)
@@ -3357,10 +3396,10 @@ def main(argv=None) -> int:
         arkit, seed=s, n_views=arkit.data.n_src_test,
         n_targets=arkit.data.nerf_target_views_test, arkit=True)
         for s in range(N_SCENES)]
-    arkit_launches, _, _, k3_arkit_args = predict_phases(
+    arkit_launches, _, _, k3_arkit_args, nms_arkit = predict_phases(
         arkit, scenes, torch.float32, phase="arkit_predict")
-    _, arkit_bf16_launches, _, k3b_arkit_args = predict_phases(
-        arkit, scenes, bf16, phase="arkit_predict")
+    _, arkit_bf16_launches, _, k3b_arkit_args, nms_bf16_arkit = \
+        predict_phases(arkit, scenes, bf16, phase="arkit_predict")
     arkit_scene = make_synthetic_scene(
         arkit, seed=0, n_views=arkit.data.n_src_train,
         n_targets=arkit.data.nerf_target_views_train, arkit=True)
@@ -3718,6 +3757,63 @@ def main(argv=None) -> int:
                        nonzero_weights=int(nz.sum()),
                        selected_rows=selected_rows(pix_p, feat_p.shape[1],
                                                    nz))))
+    # the NMS kernels on the candidates each predict handed the NMS (the
+    # first scene's), and on the same boxes with every candidate valid (the
+    # benchmark's predicts, whose class bias is 0, keep ~99% of them)
+    for name, (args, calls) in (("nms3d_predict", nms_predict),
+                                ("nms3d_bf16_predict", nms_bf16_predict),
+                                ("nms3d_arkit_predict", nms_arkit),
+                                ("nms3d_bf16_arkit_predict", nms_bf16_arkit)):
+        boxes, scores, classes, thr, valid, max_out = args
+        rotated = boxes.shape[1] == 7
+        fn = nms.rotated_3d_nms if rotated else nms.aligned_3d_nms
+        ref = (nms.rotated_3d_nms_reference if rotated
+               else nms.aligned_3d_nms_reference)
+        iou_fn = nms.rotated_iou_bev_exact if rotated else nms.aligned_iou_3d
+        iou_err = (nms.nms3d_iou(boxes, rotated).double()
+                   - iou_fn(boxes, boxes).double()).abs().max().item()
+        all_valid = torch.ones_like(valid)
+        picks = {}
+        for key, v in (("handed", valid), ("all_valid", all_valid)):
+            got, want = fn(boxes, scores, classes, thr, v, max_out), \
+                ref(boxes, scores, classes, thr, v, max_out)
+            picks[key] = (torch.equal(got[0], want[0])
+                          and torch.equal(got[1], want[1]), int(got[1].sum()))
+            check(picks[key][0], f"{name}: the kernels' picks differ from the "
+                                 f"plain version's ({key})")
+        check(iou_err <= 1e-5, f"{name}: the kernel's IoU differs from the "
+                               f"plain IoU by {iou_err}")
+        mask = nms.nms3d_mask(boxes, classes, thr, rotated)
+        b, by, same_class = nms_bound(boxes, scores, classes, max_out,
+                                      rotated)
+        kernels.append(dict(
+            name=name, route="cuda", source="mvsdet_torch/ops/csrc/nms3d.cu",
+            replaces="none: the JAX package's NMS (mvsdet_tpu/ops/nms.py) "
+                     "is plain XLA",
+            launches=calls, picks_equal=picks["handed"][0],
+            iou_max_abs_err=iou_err,
+            ms=cuda_ms(lambda: fn(*args)),
+            host_paced_ms=cuda_ms(lambda: fn(*args), queued=False),
+            mask_ms=cuda_ms(lambda: nms.nms3d_mask(boxes, classes, thr,
+                                                   rotated)),
+            greedy_ms=cuda_ms(lambda: nms.nms3d_greedy(mask, scores, valid,
+                                                       max_out)),
+            plain_ms=cuda_ms(lambda: ref(*args), reps=3),
+            bound_ms=b, bound_by=by,
+            all_valid=dict(
+                picks_equal=picks["all_valid"][0],
+                kept=picks["all_valid"][1],
+                ms=cuda_ms(lambda: fn(boxes, scores, classes, thr,
+                                      all_valid, max_out)),
+                greedy_ms=cuda_ms(lambda: nms.nms3d_greedy(
+                    mask, scores, all_valid, max_out)),
+                plain_ms=cuda_ms(lambda: ref(boxes, scores, classes, thr,
+                                             all_valid, max_out), reps=3)),
+            shape=dict(candidates=boxes.shape[0], valid=int(valid.sum()),
+                       kept=picks["handed"][1], same_class_pairs=same_class,
+                       boxes=str(boxes.dtype).replace("torch.", ""),
+                       scores=str(scores.dtype).replace("torch.", ""))))
+        del mask
     if opts.save_kernel_inputs:
         torch.save({"k1": k1_args, "k2": k2_args,
                     "k1_predict": k1_predict_args, "k1_c1": k1_c1_args,
@@ -3725,7 +3821,9 @@ def main(argv=None) -> int:
                     "k3_predict": k3_predict_args, "k4": k4_args,
                     "k5": k5_args, "k3_bf16": k3b_args,
                     "k3_bf16_predict": k3b_predict_args, "k4_bf16": k4b_args,
-                    "k5_bf16": k5b_args}, opts.save_kernel_inputs)
+                    "k5_bf16": k5b_args, "nms_predict": nms_predict[0],
+                    "nms_arkit_predict": nms_arkit[0]},
+                   opts.save_kernel_inputs)
     print(json.dumps({"kernels": kernels}), flush=True)
     check(not overfit_failures, f"overfit_map: {overfit_failures}")
     print(json.dumps({"ok": True, "device": {

@@ -7,15 +7,30 @@ never waits on the device: each pick takes the highest active score and
 suppresses the same-class boxes it overlaps above the threshold.  Yaw
 boxes take the exact rotated IoU (a polygon clip of the footprints); the
 training loss takes a soft, sampled one that has gradients.
+
+`aligned_3d_nms` and `rotated_3d_nms` run the hand-written kernels of
+`csrc/nms3d.cu` (`nms3d`: the suppression mask, then the greedy picks in
+one block, two launches) when the boxes are on the card, in float32,
+float64, bfloat16 or float16, each computing the IoU as the plain
+version computes it in that dtype; on the CPU they run the plain
+version (`aligned_3d_nms_reference`, `rotated_3d_nms_reference`:
+`_greedy_nms` over the IoU matrix).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from mvsdet_torch.models.layers import at_least, sigmoid, softplus
+from mvsdet_torch.ops import build
+
+# the boxes' dtypes the kernels take, by their code in csrc/nms3d.cu
+_BOX_DTYPES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2,
+               torch.float16: 3}
 
 
 def aligned_iou_3d(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.Tensor:
@@ -69,6 +84,19 @@ def aligned_3d_nms(boxes: torch.Tensor, scores: torch.Tensor,
       keep_idx: (max_out,) int64 picked indices (0 in empty slots).
       keep_mask: (max_out,) bool, which slots are real picks.
     """
+    if _on_card(boxes):
+        return nms3d(boxes, scores, classes, iou_thr, valid, max_out,
+                     rotated=False)
+    return aligned_3d_nms_reference(boxes, scores, classes, iou_thr, valid,
+                                    max_out)
+
+
+def aligned_3d_nms_reference(boxes: torch.Tensor, scores: torch.Tensor,
+                             classes: torch.Tensor, iou_thr: float,
+                             valid: torch.Tensor, max_out: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`aligned_3d_nms`'s plain version, which it runs on the CPU: the
+    greedy picks over the whole IoU matrix."""
     return _greedy_nms(aligned_iou_3d(boxes, boxes), scores, classes,
                        iou_thr, valid, max_out)
 
@@ -301,5 +329,141 @@ def rotated_3d_nms(boxes7: torch.Tensor, scores: torch.Tensor,
                    max_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy class-aware NMS on yaw boxes (M, 7), with the exact rotated
     IoU; arguments and results as `aligned_3d_nms`."""
+    if _on_card(boxes7):
+        return nms3d(boxes7, scores, classes, iou_thr, valid, max_out,
+                     rotated=True)
+    return rotated_3d_nms_reference(boxes7, scores, classes, iou_thr, valid,
+                                    max_out)
+
+
+def rotated_3d_nms_reference(boxes7: torch.Tensor, scores: torch.Tensor,
+                             classes: torch.Tensor, iou_thr: float,
+                             valid: torch.Tensor, max_out: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`rotated_3d_nms`'s plain version, which it runs on the CPU: the
+    greedy picks over the whole exact IoU matrix."""
     return _greedy_nms(rotated_iou_bev_exact(boxes7, boxes7), scores,
                        classes, iou_thr, valid, max_out)
+
+
+# -- the kernels of csrc/nms3d.cu ---------------------------------------------
+
+def _on_card(boxes: torch.Tensor) -> bool:
+    """Whether the NMS of ``boxes`` runs the kernels: boxes on a CUDA
+    device."""
+    return boxes.device.type == "cuda"
+
+
+def _check_boxes(boxes: torch.Tensor, rotated: bool) -> int:
+    width = 7 if rotated else 6
+    if boxes.ndim != 2 or boxes.shape[1] != width:
+        raise ValueError(f"boxes must be (M, {width}), got "
+                         f"{tuple(boxes.shape)}")
+    if not _on_card(boxes):
+        raise ValueError(f"the NMS kernels take boxes on a CUDA device, not "
+                         f"on {boxes.device}")
+    if boxes.dtype not in _BOX_DTYPES:
+        raise ValueError(f"the NMS kernels take float32, float64, bfloat16 "
+                         f"or float16 boxes, not {boxes.dtype}")
+    m = boxes.shape[0]
+    if not 0 < m < 2 ** 31:
+        raise ValueError(f"the NMS kernels take 1 to 2**31 - 1 boxes, got {m}")
+    return m
+
+
+def nms3d_mask(boxes: torch.Tensor, classes: torch.Tensor, iou_thr: float,
+               rotated: bool) -> torch.Tensor:
+    """The suppression mask of `_greedy_nms`, bit-packed: (M, ceil(M /
+    64)) int64 words holding uint64 bits, bit b of word w of row i set
+    when box i suppresses box 64 w + b (the same class and an IoU above
+    ``iou_thr``, or i itself).  One launch of `nms3d_mask_kernel`."""
+    m = _check_boxes(boxes, rotated)
+    if classes.shape != (m,) or classes.device != boxes.device:
+        raise ValueError(f"classes must be ({m},) on {boxes.device}")
+    boxes = boxes.contiguous()
+    classes = classes.to(torch.int64).contiguous()
+    mask = torch.empty((m, (m + 63) // 64), dtype=torch.int64,
+                       device=boxes.device)
+    with torch.cuda.device(boxes.device):
+        err = _library().nms3d_mask(
+            boxes.data_ptr(), _BOX_DTYPES[boxes.dtype], classes.data_ptr(),
+            mask.data_ptr(), m, int(rotated), iou_thr,
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"nms3d_mask kernel launch failed: cudaError {err}")
+    return mask
+
+
+def nms3d_greedy(mask: torch.Tensor, scores: torch.Tensor,
+                 valid: torch.Tensor, max_out: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`_greedy_nms`'s picks over `nms3d_mask`'s mask, in one block of
+    `nms3d_greedy_kernel`; float64 scores are read as they are, any
+    other as float32 (exact for float16 and bfloat16)."""
+    m = mask.shape[0]
+    if scores.shape != (m,) or valid.shape != (m,) \
+            or scores.device != mask.device or valid.device != mask.device:
+        raise ValueError(f"scores and valid must be ({m},) on {mask.device}")
+    f64 = scores.dtype == torch.float64
+    scores = scores.to(torch.float64 if f64 else torch.float32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    keep_idx = torch.empty(max_out, dtype=torch.int64, device=mask.device)
+    keep_mask = torch.empty(max_out, dtype=torch.bool, device=mask.device)
+    # the keys' home when they do not fit in the block's shared memory
+    scratch = torch.empty(m, dtype=torch.int64, device=mask.device)
+    with torch.cuda.device(mask.device):
+        err = _library().nms3d_greedy(
+            mask.data_ptr(), scores.data_ptr(), int(f64), valid.data_ptr(),
+            keep_idx.data_ptr(), keep_mask.data_ptr(), m, max_out,
+            scratch.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"nms3d_greedy kernel launch failed: "
+                           f"cudaError {err}")
+    return keep_idx, keep_mask
+
+
+def nms3d(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
+          iou_thr: float, valid: torch.Tensor, max_out: int,
+          rotated: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`aligned_3d_nms` (``rotated`` False, corner boxes (M, 6)) or
+    `rotated_3d_nms` (yaw boxes (M, 7)) on the card: the mask, then the
+    greedy picks, the same picks as the plain version's.  `nms3d.launches`
+    counts its calls (two kernel launches each)."""
+    mask = nms3d_mask(boxes, classes, iou_thr, rotated)
+    out = nms3d_greedy(mask, scores, valid, max_out)
+    nms3d.launches += 1
+    return out
+
+
+nms3d.launches = 0
+
+
+def nms3d_iou(boxes: torch.Tensor, rotated: bool) -> torch.Tensor:
+    """The (M, M) IoU that `nms3d_mask` thresholds, in the boxes' dtype,
+    every pair computed: `aligned_iou_3d(boxes, boxes)` or
+    `rotated_iou_bev_exact`, as the kernel computes it (for the tests)."""
+    m = _check_boxes(boxes, rotated)
+    boxes = boxes.contiguous()
+    out = torch.empty((m, m), dtype=boxes.dtype, device=boxes.device)
+    with torch.cuda.device(boxes.device):
+        err = _library().nms3d_iou(boxes.data_ptr(), _BOX_DTYPES[boxes.dtype],
+                                   out.data_ptr(), m, int(rotated),
+                                   torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"nms3d_iou kernel launch failed: cudaError {err}")
+    return out
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """The library of `csrc/nms3d.cu`, its entry points typed."""
+    lib = build.load("nms3d")
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.nms3d_mask.argtypes = [ptr, i32, ptr, ptr, i32, i32, ctypes.c_double,
+                               ptr]
+    lib.nms3d_iou.argtypes = [ptr, i32, ptr, i32, i32, ptr]
+    lib.nms3d_greedy.argtypes = [ptr, ptr, i32, ptr, ptr, ptr, i32, i32, ptr,
+                                 ptr]
+    for fn in (lib.nms3d_mask, lib.nms3d_iou, lib.nms3d_greedy):
+        fn.restype = ctypes.c_int
+    return lib

@@ -18,8 +18,11 @@ autograd Function (`lift_backward`, whatever the tree runs there); and,
 where the file and the tree have them, the bf16 variants of K3, K4 and
 K5 on the bf16 step's inputs, one bf16 backward (`K3_bf16` ...
 `lift_backward_bf16`) and the bf16 K3 on the bf16 predict's inputs
-(`K3_bf16_predict`).  Run it as a script, not with `-m`, so that
-`mvsdet_torch` comes from DIR.
+(`K3_bf16_predict`); where the file has them, the NMS on the candidates
+the ScanNet and the ARKit predict handed it (`NMS_predict`,
+`NMS_arkit_predict`: the tree's `aligned_3d_nms` and `rotated_3d_nms`,
+its kernels where it has them, else its plain version).  Run it as a
+script, not with `-m`, so that `mvsdet_torch` comes from DIR.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ def main() -> None:
         raise SystemExit("time_kernels measures the card; no CUDA device")
     tree = Path(opts.tree).resolve()
     sys.path.insert(0, str(tree))
-    from mvsdet_torch.ops import lift_kernel
+    from mvsdet_torch.ops import lift_kernel, nms
     from mvsdet_torch.ops.splat_kernel import (composite_tiles,
                                                composite_tiles_bwd)
 
@@ -89,6 +92,11 @@ def main() -> None:
         if "k3_bf16_predict" in inputs:
             calls["K3_bf16_predict"] = functools.partial(
                 lift_kernel.weighted_gather_sum, *inputs["k3_bf16_predict"])
+    for key, name, fn in (("nms_predict", "NMS_predict", nms.aligned_3d_nms),
+                          ("nms_arkit_predict", "NMS_arkit_predict",
+                           nms.rotated_3d_nms)):
+        if key in inputs:
+            calls[name] = functools.partial(fn, *inputs[key])
     reps = {"lift_backward": smoke.BACKWARD_REPS,
             "lift_backward_bf16": smoke.BACKWARD_REPS}
     times = {name: {"ms": smoke.cuda_ms(fn, reps=reps.get(name, 20)),

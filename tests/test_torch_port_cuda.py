@@ -19,6 +19,7 @@ from mvsdet_torch.config import tiny_test_config
 from mvsdet_torch.data.synthetic import make_synthetic_scene
 from mvsdet_torch.evaluation.harness import make_predict_fn
 from mvsdet_torch.models.mvsdet import build_model
+from mvsdet_torch.ops import nms
 from mvsdet_torch.ops.lift_kernel import (
     lift_rows, lift_rows_reference, weighted_gather_sum,
     weighted_gather_sum_dfeat, weighted_gather_sum_dfeat_reference,
@@ -537,6 +538,9 @@ def test_bf16_gradients_run_the_bf16_backward_kernels(cuda):
 
 
 def test_predict_on_card_matches_cpu(cuda):
+    """The tiny narrow model on a ScanNet scene: K1, K3 and the NMS
+    kernels launched once each; the outputs equal to the CPU's or within
+    1e-4."""
     base = tiny_test_config()
     cfg = dataclasses.replace(base, model=dataclasses.replace(
         base.model, neck3d_out_channels=16,
@@ -545,10 +549,12 @@ def test_predict_on_card_matches_cpu(cuda):
     scene = make_synthetic_scene(cfg, seed=0, n_views=5, n_targets=2)
     gen = lambda: torch.Generator().manual_seed(0)
     want = make_predict_fn(build_model(cfg, "cpu", gen()), "cpu")(scene)
-    launches = (composite_tiles.launches, weighted_gather_sum.launches)
+    launches = (composite_tiles.launches, weighted_gather_sum.launches,
+                nms.nms3d.launches)
     got = make_predict_fn(build_model(cfg, "cuda", gen()))(scene)
-    assert (composite_tiles.launches, weighted_gather_sum.launches) == \
-        (launches[0] + 1, launches[1] + 1)
+    assert (composite_tiles.launches, weighted_gather_sum.launches,
+            nms.nms3d.launches) == (launches[0] + 1, launches[1] + 1,
+                                    launches[2] + 1)
     np.testing.assert_allclose(got["rendered"], want["rendered"], atol=1e-4)
     np.testing.assert_allclose(got["depth_expect"], want["depth_expect"],
                                rtol=1e-4, atol=1e-4)
@@ -586,37 +592,170 @@ def test_train_step_on_card_matches_cpu(cuda):
                 1e-4 * abs(value.item()), key
 
 
-def test_rotated_nms_on_card_matches_cpu(cuda):
-    """The ARKit predict's NMS at its full candidate count (3 levels of
-    nms_pre: 1000 + 1000 + 400 = 2,400 yaw boxes, 17 classes, 256 picks):
-    the exact IoU matrix within 1e-5 of the CPU's (cos and sin differ in
-    the last bit), the kept indices and mask equal."""
-    from mvsdet_torch.ops.nms import rotated_3d_nms, rotated_iou_bev_exact
+NMS_EDGES = ["random", "all_scores_equal", "score_ties", "no_valid_row",
+             "fewer_valid_than_max_out", "duplicate_boxes",
+             "zero_size_boxes", "m_1", "m_63", "m_64", "m_65"]
+# float32 and bfloat16 (the boxes and scores a bf16 model may hand the
+# NMS) on every edge; float16 and float64 on a few
+NMS_CASES = ([(edge, "float32") for edge in NMS_EDGES]
+             + [(edge, "bfloat16") for edge in NMS_EDGES]
+             + [(edge, dtype) for dtype in ("float16", "float64")
+                for edge in ("random", "score_ties", "zero_size_boxes",
+                             "m_65")])
 
-    rng = np.random.RandomState(0)
-    m = 2400
-    boxes = np.concatenate([
-        rng.uniform(-2, 2, (m, 2)), rng.uniform(0, 1.5, (m, 1)),
-        rng.uniform(0.2, 2.0, (m, 3)), rng.uniform(-np.pi, np.pi, (m, 1))],
-        1).astype(np.float32)
+
+def nms_case(edge: str, rotated: bool, seed: int):
+    """The ARKit predict's NMS at its full candidate count (3 levels of
+    nms_pre: 1000 + 1000 + 400 = 2,400 boxes, 17 classes, 256 picks), or
+    one named edge of it; yaw boxes (M, 7) or corner boxes (M, 6)."""
+    rng = np.random.RandomState(seed)
+    m = int(edge[2:]) if edge.startswith("m_") else 2400
+    centre = np.concatenate([rng.uniform(-2, 2, (m, 2)),
+                             rng.uniform(0, 1.5, (m, 1))], 1)
+    size = rng.uniform(0.2, 2.0, (m, 3))
+    yaw = rng.uniform(-np.pi, np.pi, (m, 1))
+    if edge == "duplicate_boxes":
+        centre[1::2], size[1::2], yaw[1::2] = centre[::2], size[::2], yaw[::2]
+    if edge == "zero_size_boxes":     # points, and boxes flat in z
+        size[::3] = 0.0
+        size[1::7, 2] = 0.0
+    boxes = (np.concatenate([centre, size, yaw], 1) if rotated
+             else np.concatenate([centre - size / 2, centre + size / 2], 1))
     scores = rng.rand(m).astype(np.float32)
+    if edge == "all_scores_equal":
+        scores[:] = 0.5
+    elif edge in ("score_ties", "duplicate_boxes"):
+        scores = np.round(scores * 8).astype(np.float32) / 8
     classes = rng.randint(0, 17, m)
     valid = scores > 0.1
-    cpu = [torch.from_numpy(a) for a in (boxes, scores, classes, valid)]
+    if edge == "duplicate_boxes":
+        classes[1::2], scores[1::2] = classes[::2], scores[::2]
+    if edge in ("all_scores_equal", "duplicate_boxes"):
+        valid[:] = True
+    elif edge == "no_valid_row":
+        valid[:] = False
+    elif edge == "fewer_valid_than_max_out":
+        valid &= rng.rand(m) < 0.05
+    return [torch.from_numpy(a) for a in (boxes.astype(np.float32), scores,
+                                          classes, valid)]
+
+
+def iou_gap(got: torch.Tensor, want: torch.Tensor):
+    """The largest |got - want| (NaN where both are NaN counts as equal,
+    NaN on one side only as inf) and the share of pairs that differ."""
+    got, want = got.double(), want.double()
+    both_nan = got.isnan() & want.isnan()
+    diff = torch.where(both_nan, 0.0, (got - want).abs())
+    diff = torch.where(diff.isnan(), torch.inf, diff)
+    return diff.max().item(), (diff > 0).double().mean().item()
+
+
+@pytest.mark.parametrize("rotated", [False, True], ids=["aligned",
+                                                         "rotated"])
+@pytest.mark.parametrize("edge,dtype", NMS_CASES,
+                         ids=[f"{e}-{d}" if d != "float32" else e
+                              for e, d in NMS_CASES])
+def test_rotated_nms_on_card_matches_cpu(cuda, edge, dtype, rotated):
+    """The NMS kernels against the plain version, the boxes and scores in
+    ``dtype``, one call of the kernel path.  float32: the kernel's IoU
+    within 1e-5 of the plain IoU on the card (cos and sin of the CPU
+    differ in the last bit, so the CPU's IoU is held to the same), the
+    kept indices and mask equal to the CPU's.  Other dtypes: against the
+    plain version on the card, whose elementwise ops round each result to
+    the dtype as the kernel does: the IoU within 1e-5 (float64), or
+    within one epsilon of the dtype in at most 1e-4 of the pairs (bf16,
+    float16: only the shoelace sum's order differs, in float before its
+    one rounding), and the picks equal."""
+    fn, ref, iou = (
+        (nms.rotated_3d_nms, nms.rotated_3d_nms_reference,
+         nms.rotated_iou_bev_exact) if rotated
+        else (nms.aligned_3d_nms, nms.aligned_3d_nms_reference,
+              nms.aligned_iou_3d))
+    dt = getattr(torch, dtype)
+    cpu = nms_case(edge, rotated, NMS_EDGES.index(edge))
+    cpu[0], cpu[1] = cpu[0].to(dt), cpu[1].to(dt)
     card = [t.to(cuda) for t in cpu]
-    iou_cpu = rotated_iou_bev_exact(cpu[0], cpu[0])
-    iou_card = rotated_iou_bev_exact(card[0], card[0])
-    assert (iou_card.cpu() - iou_cpu).abs().max() <= 1e-5
-    want = rotated_3d_nms(cpu[0], cpu[1], cpu[2], 0.25, cpu[3], 256)
-    got = rotated_3d_nms(card[0], card[1], card[2], 0.25, card[3], 256)
-    assert torch.equal(got[1].cpu(), want[1]) and want[1].sum() > 100
+    iou_kernel = nms.nms3d_iou(card[0], rotated)
+    assert iou_kernel.dtype == dt
+    gap, share = iou_gap(iou_kernel, iou(card[0], card[0]))
+    if dt in (torch.float32, torch.float64):
+        assert gap <= 1e-5
+    else:
+        assert gap <= torch.finfo(dt).eps and share <= 1e-4, (gap, share)
+    if dt == torch.float32:
+        iou_cpu = iou(cpu[0], cpu[0])
+        assert iou_gap(iou_kernel.cpu(), iou_cpu)[0] <= 1e-5
+        # the CPU's picks (`fn` on CPU tensors), its IoU computed once
+        want = nms._greedy_nms(iou_cpu, cpu[1], cpu[2], 0.25, cpu[3], 256)
+    else:
+        want = [t.cpu() for t in ref(card[0], card[1], card[2], 0.25,
+                                     card[3], 256)]
+    launches = nms.nms3d.launches
+    got = fn(card[0], card[1], card[2], 0.25, card[3], 256)
+    assert nms.nms3d.launches == launches + 1
+    assert torch.equal(got[1].cpu(), want[1])
     assert torch.equal(got[0].cpu(), want[0])
+    if edge == "random":
+        assert want[1].sum() > 100
+    if edge == "duplicate_boxes":       # never both boxes of a pair
+        kept = want[0][want[1]] // 2
+        assert kept.unique().numel() == kept.numel()
+
+
+def picks_row_by_row(boxes, scores, classes, thr, valid, max_out):
+    """`aligned_3d_nms_reference`'s picks with each pick's IoU row
+    computed when it is picked: `_greedy_nms` reads no other row of its
+    IoU matrix."""
+    active = torch.where(valid, scores, -torch.inf)
+    keep_idx = torch.zeros(max_out, dtype=torch.int64, device=boxes.device)
+    keep_mask = torch.zeros(max_out, dtype=torch.bool, device=boxes.device)
+    for t in range(max_out):
+        i = int(torch.argmax(active))
+        if not bool(active[i] > -torch.inf):
+            break
+        keep_idx[t], keep_mask[t] = i, True
+        row = (nms.aligned_iou_3d(boxes[i:i + 1], boxes)[0] > thr) \
+            & (classes == classes[i])
+        row[i] = True
+        active = torch.where(row, -torch.inf, active)
+    return keep_idx, keep_mask
+
+
+@pytest.mark.parametrize("m,score_dtype", [(60_000, torch.float32),
+                                           (30_000, torch.float64)],
+                         ids=["float32_keys", "float64_keys"])
+def test_nms_keys_beyond_shared_memory(cuda, m, score_dtype):
+    """More candidates than the greedy block's shared memory holds keys
+    for (~58,000 32-bit keys or ~29,000 64-bit ones in an H100's 227 KB),
+    so the keys live in global memory; the boxes spread over a room
+    sqrt(M / 2,400) times as wide as `nms_case`'s, so that each overlaps
+    as many: the picks equal the plain version's (`picks_row_by_row`: at
+    this M the plain IoU matrix's broadcast intermediates would not fit
+    the card)."""
+    rng = np.random.RandomState(17)
+    spread = 2.0 * np.sqrt(m / 2400)
+    centre = np.concatenate([rng.uniform(-spread, spread, (m, 2)),
+                             rng.uniform(0, 1.5, (m, 1))], 1)
+    size = rng.uniform(0.2, 2.0, (m, 3))
+    boxes = torch.from_numpy(np.concatenate(
+        [centre - size / 2, centre + size / 2], 1).astype(np.float32))
+    scores = torch.from_numpy(rng.rand(m)).to(score_dtype)
+    classes = torch.from_numpy(rng.randint(0, 17, m))
+    boxes, scores, classes = (t.to(cuda) for t in (boxes, scores, classes))
+    args = (boxes, scores, classes, 0.25, scores > 0.1, 256)
+    launches = nms.nms3d.launches
+    got = nms.aligned_3d_nms(*args)
+    assert nms.nms3d.launches == launches + 1
+    want = picks_row_by_row(*args)
+    assert want[1].sum() == 256
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
 
 
 def test_arkit_predict_on_card_matches_cpu(cuda):
     """The tiny narrow model with the yaw head on an ARKit scene (per-view
-    and per-target intrinsics): K1 and K3 launched once each; outputs as
-    `test_predict_on_card_matches_cpu` holds them, boxes (max_det, 7)."""
+    and per-target intrinsics): K1, K3 and the NMS kernels launched once
+    each; outputs as `test_predict_on_card_matches_cpu` holds them, boxes
+    (max_det, 7)."""
     base = tiny_test_config()
     cfg = dataclasses.replace(base, model=dataclasses.replace(
         base.model, neck3d_out_channels=16,
@@ -628,10 +767,12 @@ def test_arkit_predict_on_card_matches_cpu(cuda):
                                  arkit=True)
     gen = lambda: torch.Generator().manual_seed(0)
     want = make_predict_fn(build_model(cfg, "cpu", gen()), "cpu")(scene)
-    launches = (composite_tiles.launches, weighted_gather_sum.launches)
+    launches = (composite_tiles.launches, weighted_gather_sum.launches,
+                nms.nms3d.launches)
     got = make_predict_fn(build_model(cfg, "cuda", gen()))(scene)
-    assert (composite_tiles.launches, weighted_gather_sum.launches) == \
-        (launches[0] + 1, launches[1] + 1)
+    assert (composite_tiles.launches, weighted_gather_sum.launches,
+            nms.nms3d.launches) == (launches[0] + 1, launches[1] + 1,
+                                    launches[2] + 1)
     assert got["boxes"].shape == (cfg.model.head.max_detections, 7)
     np.testing.assert_allclose(got["rendered"], want["rendered"], atol=1e-4)
     np.testing.assert_allclose(got["depth_expect"], want["depth_expect"],
